@@ -1,0 +1,217 @@
+#!/usr/bin/env python3
+"""Design probes for genome capture on a GPU (main executable).
+
+The port of catch_tpu/cli/design.py for the flags the slice serves:
+datasets as FASTA files, candidate tiling, duplicate removal and set
+cover under the mismatch/LCS model, with the same flag names and
+defaults.  `--device` (default `cuda`) says where the scan runs; a
+missing CUDA device is an error, never a quiet switch to the CPU.  Every
+other flag of catch_tpu's CLI is refused with the ROADMAP item that
+will bring it.
+
+Run as ``python -m catch_tpu_torch.cli.design``.
+"""
+
+import argparse
+import logging
+import os
+
+from catch_tpu_torch import designer as probe_designer
+from catch_tpu_torch.device import resolve_device
+from catch_tpu_torch.filters import base as filter_base
+from catch_tpu_torch.filters.duplicate import DuplicateFilter
+from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
+from catch_tpu_torch.utils import log, seq_io, version
+
+# Flags of catch_tpu/cli/design.py that the port refuses, with where
+# in ROADMAP.md queue 1 they come back.
+_REFUSED = {
+    ("--write-taxid-acc", "--ncbi-api-key"):
+        "NCBI downloads need the network",
+    ("-i", "--identify", "--avoid-genomes", "-mt",
+     "--mismatches-tolerant", "-lt", "--lcf-thres-tolerant",
+     "--island-of-exact-match-tolerant", "--custom-hybridization-fn",
+     "--custom-hybridization-fn-tolerant",
+     "--use-native-dict-when-finding-tolerant-coverage",
+     "--print-analysis", "--write-analysis-to-tsv",
+     "--write-sliding-window-coverage", "--write-probe-map-counts-to-tsv"):
+        "ROADMAP queue 1, item 6",
+    ("--cluster-and-design-separately",
+     "--cluster-and-design-separately-method",
+     "--cluster-from-fragments", "--filter-with-lsh-hamming"):
+        "ROADMAP queue 1, item 7",
+    ("--filter-with-lsh-minhash",): "ROADMAP queue 1, item 8",
+    ("--num-devices",): "ROADMAP queue 1, item 10",
+    ("--filter-from-fasta", "--skip-set-cover", "--add-adapters",
+     "--adapter-a", "--adapter-b", "--filter-polya",
+     "--add-reverse-complements", "--expand-n",
+     "--limit-target-genomes-randomly-with-replacement"):
+        "ROADMAP queue 1, item 12",
+}
+
+
+class _Refuse(argparse.Action):
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is not supported by catch_tpu_torch "
+                     f"yet ({self.help})")
+
+
+def main(args):
+    """Run the design; returns the ProbeDesigner (its filters hold the
+    run statistics)."""
+    log.configure_logging(args.log_level)
+    logger = logging.getLogger(__name__)
+    device = resolve_device(args.device)
+
+    genomes_grouped = []
+    for ds in args.dataset:
+        if not os.path.isfile(ds):
+            raise ValueError(
+                f"Cannot interpret dataset {ds!r}: catch_tpu_torch reads "
+                "FASTA files only ('download:' and 'collection:' inputs "
+                "are not supported)")
+        genomes_grouped.append(seq_io.read_genomes_from_fasta(ds))
+    if args.limit_target_genomes:
+        genomes_grouped = [genomes[:args.limit_target_genomes]
+                           for genomes in genomes_grouped]
+
+    if not args.lcf_thres:
+        args.lcf_thres = args.probe_length
+    for name, val in (("PROBE_STRIDE", args.probe_stride),
+                      ("LCF_THRES", args.lcf_thres),
+                      ("ISLAND_OF_EXACT_MATCH",
+                       args.island_of_exact_match)):
+        if val > args.probe_length:
+            logger.warning(
+                "%s (%d) exceeds PROBE_LENGTH (%d); such settings are "
+                "rarely what you want and their behavior is not "
+                "well-defined", name, val, args.probe_length)
+    if args.mismatches / args.probe_length > 0.15:
+        logger.warning(
+            "MISMATCHES (%d) is unusually high for PROBE_LENGTH (%d); "
+            "expect a slower design and, in practice, weaker "
+            "enrichment", args.mismatches, args.probe_length)
+
+    if args.kmer_probe_map_k:
+        if args.kmer_probe_map_k > args.probe_length:
+            raise Exception(
+                "KMER_PROBE_MAP_K (%d) cannot exceed PROBE_LENGTH (%d)"
+                % (args.kmer_probe_map_k, args.probe_length))
+        kmer_probe_map_k = args.kmer_probe_map_k
+    else:
+        kmer_probe_map_k = 20
+
+    if args.small_seq_skip is not None and args.small_seq_min is not None:
+        raise Exception(
+            "--small-seq-skip and --small-seq-min are mutually "
+            "exclusive")
+
+    if args.max_num_processes is not None:
+        filter_base.set_max_num_processes_for_filter_over_groupings(
+            args.max_num_processes)
+
+    scf = SetCoverFilter(
+        mismatches=args.mismatches, lcf_thres=args.lcf_thres,
+        island_of_exact_match=args.island_of_exact_match,
+        coverage=args.coverage, cover_extension=args.cover_extension,
+        kmer_probe_map_k=kmer_probe_map_k, device=device)
+    pb = probe_designer.ProbeDesigner(
+        genomes_grouped, [DuplicateFilter(), scf],
+        probe_length=args.probe_length, probe_stride=args.probe_stride,
+        allow_small_seqs=args.small_seq_min,
+        seq_length_to_skip=args.small_seq_skip)
+    pb.design()
+
+    seq_io.write_probe_fasta(pb.final_probes, args.output_probes)
+    print(len(pb.final_probes))
+    return pb
+
+
+def init_and_parse_args(argv=None):
+    """Parse command-line arguments (catch_tpu's 'basic' defaults)."""
+    parser = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+
+    parser.add_argument("dataset", nargs="+",
+        help="One or more target datasets (e.g., one per species), each "
+             "a path to a FASTA file")
+    parser.add_argument("-o", "--output-probes", required=True,
+        help=("The file to which all final probes should be written "
+              "(FASTA format)"))
+    parser.add_argument("-pl", "--probe-length", type=int, default=100,
+        help="Make probes be PROBE_LENGTH nt long")
+    parser.add_argument("-ps", "--probe-stride", type=int, default=50,
+        help=("Generate candidate probes from the input that are "
+              "separated by PROBE_STRIDE nt"))
+    parser.add_argument("-m", "--mismatches", type=int, default=0,
+        help=("Allow for MISMATCHES mismatches when determining whether "
+              "a probe covers a sequence"))
+    parser.add_argument("-l", "--lcf-thres", type=int,
+        help=("(Optional) Cover threshold: shared substring length with "
+              "at most MISMATCHES mismatches; defaults to PROBE_LENGTH"))
+    parser.add_argument("--island-of-exact-match", type=int, default=0,
+        help=("(Optional) Require an exact match of at least this "
+              "length for a probe to cover a sequence"))
+
+    def check_coverage(val):
+        fval = float(val)
+        ival = int(fval)
+        if 0 <= fval <= 1:
+            return fval
+        elif fval > 1 and fval == ival:
+            return ival
+        raise argparse.ArgumentTypeError(
+            "%s is an invalid coverage value" % val)
+
+    parser.add_argument("-c", "--coverage", type=check_coverage,
+        default=1.0,
+        help=("Fraction of each target genome to cover (float in "
+              "[0,1]), or number of bp to cover (int > 1)"))
+    parser.add_argument("-e", "--cover-extension", type=int, default=0,
+        help="Extend coverage on each side of a probe by this many nt")
+    parser.add_argument("--limit-target-genomes", type=int,
+        help="(Optional) Use only the first N target genomes per dataset")
+    parser.add_argument("--small-seq-skip", type=int,
+        help=("(Optional) Do not create candidate probes from sequences "
+              "of length <= SMALL_SEQ_SKIP"))
+    parser.add_argument("--small-seq-min", type=int,
+        help=("(Optional) Allow input sequences shorter than "
+              "PROBE_LENGTH, down to this minimum length (the candidate "
+              "probe equals the sequence)"))
+
+    def check_max_num_processes(val):
+        ival = int(val)
+        if ival >= 1:
+            return ival
+        raise argparse.ArgumentTypeError(
+            "MAX_NUM_PROCESSES must be an int >= 1")
+
+    parser.add_argument("--max-num-processes",
+        type=check_max_num_processes,
+        help="(Optional) Cap on the threads that filter groups in parallel")
+    parser.add_argument("--kmer-probe-map-k", type=int,
+        help=("(Optional) Seed k-mer length for mapping candidate "
+              "probes to target sequences (pigeonhole when possible, "
+              "else this length)"))
+    parser.add_argument("--device", default="cuda",
+        help="Device of the scan: 'cuda' (or 'cuda:N') or 'cpu'")
+    parser.add_argument("--debug", dest="log_level",
+        action="store_const", const=logging.DEBUG,
+        default=logging.WARNING, help="Debug output")
+    parser.add_argument("--verbose", dest="log_level",
+        action="store_const", const=logging.INFO, help="Verbose output")
+    parser.add_argument("-V", "--version", action="version",
+        version=version.get_version())
+
+    for flags, reason in _REFUSED.items():
+        parser.add_argument(*flags, nargs="*", action=_Refuse,
+                            help=f"not supported yet: {reason}")
+    return parser.parse_args(argv)
+
+
+def run():
+    main(init_and_parse_args())
+
+
+if __name__ == "__main__":
+    run()

@@ -8,6 +8,8 @@ setup(
     name="catch_tpu",
     version=catch_tpu.__version__,
     packages=find_packages(exclude=["tests", "tests.*"]),
+    # The CUDA sources catch_tpu_torch builds at first use.
+    package_data={"catch_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     install_requires=["numpy>=1.22", "scipy>=1.8.0", "jax>=0.4.20"],
     author="catch-tpu contributors",
     description=("TPU-native design of compact, comprehensive probe sets "
