@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``catch_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
-which is loaded with ``ctypes``.  The build happens at first use, from
+Hopper (``sm_90a``), one ``nvcc`` per source and all of them at once,
+and linked into one shared library with a plain C interface, which is
+loaded with ``ctypes``.  The build happens at first use, from
 the checkout's own sources, into ``build/catch_tpu_torch/<hash>/`` next
 to the package, keyed by a hash of the sources and the compiler flags,
 so an edited source builds anew and an unchanged one loads at once.  A
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -30,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "catch_tpu_torch")
 LIB_NAME = "libcatch_tpu_torch.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -49,6 +51,12 @@ _SIGNATURES = {
     "ct_verify_emit": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
                        _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                        _I64, _P, _P, _P, _P, _P],
+    "ct_verify_spans_count": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
+                              _I32, _I32, _I32, _I32, _P, _P],
+    "ct_verify_spans_emit": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
+                             _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P],
+    "ct_expand_join": [_P, _P, _P, _P, _I64, _P, _P, _I64, _P, _P],
+    "ct_join_emit": [_P, _P, _P, _I64, _I64, _P, _P, _P],
     "ct_merge_block_scan": [_P, _P, _I64, _P, _P, _P, _P, _P],
     "ct_merge_carry": [_P, _P, _I64, _P, _P],
     "ct_merge_fixup": [_P, _P, _P, _I64, _P, _P, _P],
@@ -89,14 +97,26 @@ def _nvcc():
                        "the CUDA kernels cannot be built")
 
 
-def _compile(out_path):
-    tmp = f"{out_path}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
-           + [p for p in sources() if p.endswith(".cu")])
+def _run(cmd):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed (exit %d):\n%s\n%s\n%s" % (
             proc.returncode, " ".join(cmd), proc.stdout, proc.stderr))
+
+
+def _compile(out_path):
+    """One nvcc per source, all started together, then one link."""
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    cus = [p for p in sources() if p.endswith(".cu")]
+    objs = [f"{out_path}.{os.path.basename(p)}.{tag}.o" for p in cus]
+    with ThreadPoolExecutor(max_workers=len(cus)) as pool:
+        list(pool.map(_run, [[nvcc] + NVCC_FLAGS + ["-c", src, "-o", obj]
+                             for src, obj in zip(cus, objs)]))
+    tmp = f"{out_path}.{tag}"
+    _run([nvcc] + NVCC_FLAGS + ["-shared", "-o", tmp] + objs)
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, out_path)
 
 

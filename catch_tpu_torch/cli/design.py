@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Design probes for genome capture on a GPU (main executable).
 
-The port of catch_tpu/cli/design.py for the flags the slice serves:
+The port of catch_tpu/cli/design.py for the flags the slices serve:
 datasets as FASTA files, candidate tiling, duplicate removal and set
-cover under the mismatch/LCS model, with the same flag names and
-defaults.  `--device` (default `cuda`) says where the scan runs; a
+cover under the mismatch/LCS model, identification, avoided genomes,
+the tolerant model and the coverage analysis, with the same flag names
+and defaults.  `--device` (default `cuda`) says where the scan runs; a
 missing CUDA device is an error, never a quiet switch to the CPU.  Every
 other flag of catch_tpu's CLI is refused with the ROADMAP item that
 will bring it.
@@ -17,6 +18,7 @@ import logging
 import os
 
 from catch_tpu_torch import designer as probe_designer
+from catch_tpu_torch.analysis import coverage as coverage_analysis
 from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.filters import base as filter_base
 from catch_tpu_torch.filters.duplicate import DuplicateFilter
@@ -28,21 +30,14 @@ from catch_tpu_torch.utils import log, seq_io, version
 _REFUSED = {
     ("--write-taxid-acc", "--ncbi-api-key"):
         "NCBI downloads need the network",
-    ("-i", "--identify", "--avoid-genomes", "-mt",
-     "--mismatches-tolerant", "-lt", "--lcf-thres-tolerant",
-     "--island-of-exact-match-tolerant", "--custom-hybridization-fn",
-     "--custom-hybridization-fn-tolerant",
-     "--use-native-dict-when-finding-tolerant-coverage",
-     "--print-analysis", "--write-analysis-to-tsv",
-     "--write-sliding-window-coverage", "--write-probe-map-counts-to-tsv"):
-        "ROADMAP queue 1, item 6",
     ("--cluster-and-design-separately",
      "--cluster-and-design-separately-method",
      "--cluster-from-fragments", "--filter-with-lsh-hamming"):
         "ROADMAP queue 1, item 7",
     ("--filter-with-lsh-minhash",): "ROADMAP queue 1, item 8",
     ("--num-devices",): "ROADMAP queue 1, item 10",
-    ("--filter-from-fasta", "--skip-set-cover", "--add-adapters",
+    ("--custom-hybridization-fn", "--custom-hybridization-fn-tolerant",
+     "--filter-from-fasta", "--skip-set-cover", "--add-adapters",
      "--adapter-a", "--adapter-b", "--filter-polya",
      "--add-reverse-complements", "--expand-n",
      "--limit-target-genomes-randomly-with-replacement"):
@@ -64,6 +59,7 @@ def main(args):
     device = resolve_device(args.device)
 
     genomes_grouped = []
+    genomes_grouped_names = []
     for ds in args.dataset:
         if not os.path.isfile(ds):
             raise ValueError(
@@ -71,9 +67,18 @@ def main(args):
                 "FASTA files only ('download:' and 'collection:' inputs "
                 "are not supported)")
         genomes_grouped.append(seq_io.read_genomes_from_fasta(ds))
+        genomes_grouped_names.append(os.path.basename(ds))
     if args.limit_target_genomes:
         genomes_grouped = [genomes[:args.limit_target_genomes]
                            for genomes in genomes_grouped]
+
+    avoided_genomes_fasta = []
+    for ag in args.avoid_genomes or ():
+        if not os.path.isfile(ag):
+            raise ValueError(
+                f"--avoid-genomes entry {ag!r} is not an existing FASTA "
+                "file (named dataset labels are not supported here)")
+        avoided_genomes_fasta.append(ag)
 
     if not args.lcf_thres:
         args.lcf_thres = args.probe_length
@@ -98,8 +103,10 @@ def main(args):
                 "KMER_PROBE_MAP_K (%d) cannot exceed PROBE_LENGTH (%d)"
                 % (args.kmer_probe_map_k, args.probe_length))
         kmer_probe_map_k = args.kmer_probe_map_k
+        kmer_probe_map_k_analyzer = args.kmer_probe_map_k
     else:
         kmer_probe_map_k = 20
+        kmer_probe_map_k_analyzer = 10
 
     if args.small_seq_skip is not None and args.small_seq_min is not None:
         raise Exception(
@@ -113,8 +120,15 @@ def main(args):
     scf = SetCoverFilter(
         mismatches=args.mismatches, lcf_thres=args.lcf_thres,
         island_of_exact_match=args.island_of_exact_match,
+        mismatches_tolerant=args.mismatches_tolerant,
+        lcf_thres_tolerant=args.lcf_thres_tolerant,
+        island_of_exact_match_tolerant=args.island_of_exact_match_tolerant,
+        identify=args.identify, avoided_genomes=avoided_genomes_fasta,
         coverage=args.coverage, cover_extension=args.cover_extension,
-        kmer_probe_map_k=kmer_probe_map_k, device=device)
+        kmer_probe_map_k=kmer_probe_map_k,
+        kmer_probe_map_use_native_dict=(
+            args.use_native_dict_when_finding_tolerant_coverage),
+        device=device)
     pb = probe_designer.ProbeDesigner(
         genomes_grouped, [DuplicateFilter(), scf],
         probe_length=args.probe_length, probe_stride=args.probe_stride,
@@ -123,7 +137,33 @@ def main(args):
     pb.design()
 
     seq_io.write_probe_fasta(pb.final_probes, args.output_probes)
-    print(len(pb.final_probes))
+
+    if (args.print_analysis or args.write_analysis_to_tsv
+            or args.write_sliding_window_coverage
+            or args.write_probe_map_counts_to_tsv):
+        # --add-reverse-complements is refused (item 12), so the
+        # analysis scans the forward strands, as catch_tpu does without
+        # that flag.
+        analyzer = coverage_analysis.Analyzer(
+            pb.final_probes, args.mismatches, args.lcf_thres,
+            genomes_grouped, genomes_grouped_names,
+            island_of_exact_match=args.island_of_exact_match,
+            cover_extension=args.cover_extension,
+            kmer_probe_map_k=kmer_probe_map_k_analyzer, rc_too=False,
+            device=device)
+        analyzer.run()
+        if args.write_analysis_to_tsv:
+            analyzer.write_data_matrix_as_tsv(args.write_analysis_to_tsv)
+        if args.write_sliding_window_coverage:
+            analyzer.write_sliding_window_coverage(
+                args.write_sliding_window_coverage)
+        if args.write_probe_map_counts_to_tsv:
+            analyzer.write_probe_map_counts(
+                args.write_probe_map_counts_to_tsv)
+        if args.print_analysis:
+            analyzer.print_analysis()
+    else:
+        print(len(pb.final_probes))
     return pb
 
 
@@ -169,6 +209,31 @@ def init_and_parse_args(argv=None):
               "[0,1]), or number of bp to cover (int > 1)"))
     parser.add_argument("-e", "--cover-extension", type=int, default=0,
         help="Extend coverage on each side of a probe by this many nt")
+    parser.add_argument("-i", "--identify", dest="identify",
+        action="store_true",
+        help=("Design probes meant to identify a dataset against the "
+              "others; coverage should generally be small"))
+    parser.add_argument("--avoid-genomes", nargs="+",
+        help=("One or more FASTA files of genomes to avoid (probes are "
+              "penalized by how much they cover them)"))
+    parser.add_argument("-mt", "--mismatches-tolerant", type=int,
+        help="(Optional) More tolerant value for 'mismatches'")
+    parser.add_argument("-lt", "--lcf-thres-tolerant", type=int,
+        help="(Optional) More tolerant value for 'lcf_thres'")
+    parser.add_argument("--island-of-exact-match-tolerant", type=int,
+        default=0,
+        help="(Optional) More tolerant value for 'island_of_exact_match'")
+    parser.add_argument("--print-analysis", dest="print_analysis",
+        action="store_true",
+        help="Print analysis of the probe set's coverage")
+    parser.add_argument("--write-analysis-to-tsv",
+        help="(Optional) File for a TSV matrix of the coverage analysis")
+    parser.add_argument("--write-sliding-window-coverage",
+        help=("(Optional) File for average probe-set coverage within "
+              "sliding windows of each target genome"))
+    parser.add_argument("--write-probe-map-counts-to-tsv",
+        help=("(Optional) File for a TSV of the number of sequences "
+              "each probe maps to (not counting reverse complements)"))
     parser.add_argument("--limit-target-genomes", type=int,
         help="(Optional) Use only the first N target genomes per dataset")
     parser.add_argument("--small-seq-skip", type=int,
@@ -193,6 +258,11 @@ def init_and_parse_args(argv=None):
         help=("(Optional) Seed k-mer length for mapping candidate "
               "probes to target sequences (pigeonhole when possible, "
               "else this length)"))
+    parser.add_argument("--use-native-dict-when-finding-tolerant-coverage",
+        dest="use_native_dict_when_finding_tolerant_coverage",
+        action="store_true",
+        help=("Accepted for compatibility with the reference CLI; no "
+              "shared-memory dict exists in this implementation"))
     parser.add_argument("--device", default="cuda",
         help="Device of the scan: 'cuda' (or 'cuda:N') or 'cpu'")
     parser.add_argument("--debug", dest="log_level",

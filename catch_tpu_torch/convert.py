@@ -1,11 +1,11 @@
 """Carry searcher state across packages.
 
 This system has no weights.  The state a scan reads is the encoded
-probe set and its seed parameters; `searcher_from_reference` builds the
-port's ProbeSearcher from those fields as catch_tpu's ProbeSearcher
-holds them (numpy arrays and ints), so both packages can scan with
-exactly the same state.  It reads plain fields and imports nothing of
-catch_tpu.
+probe set, its seed parameters and the span scan's minimizer join table;
+`searcher_from_reference` builds the port's ProbeSearcher from those
+fields as catch_tpu's ProbeSearcher holds them (numpy arrays and ints),
+so both packages scan and join with exactly the same state.  It reads
+plain fields and imports nothing of catch_tpu.
 """
 
 import numpy as np
@@ -18,12 +18,16 @@ __all__ = ["REFERENCE_FIELDS", "reference_arrays", "searcher_from_reference"]
 # The fields of catch_tpu.ops.cover.ProbeSearcher that the scan reads.
 REFERENCE_FIELDS = ("probe_codes", "probe_lens", "alphabet_lut", "k_seed",
                     "seed_mode", "Lmax", "lcf_static", "K_static", "fast_ok",
-                    "island_of_exact_match")
+                    "island_of_exact_match", "join_h", "join_p", "join_pos",
+                    "join_params")
 
 
 def reference_arrays(searcher):
     """The scan state of a ProbeSearcher (of either package) as a dict
-    of numpy arrays and Python scalars keyed by REFERENCE_FIELDS."""
+    of numpy arrays and Python scalars keyed by REFERENCE_FIELDS.  The
+    join table is built first where the searcher has not built it."""
+    if getattr(searcher, "_join_h", None) is None:
+        searcher._build_join_table()
     return dict(
         probe_codes=np.asarray(searcher.probe_codes, dtype=np.uint8),
         probe_lens=np.asarray(searcher.probe_lens, dtype=np.int32),
@@ -34,15 +38,20 @@ def reference_arrays(searcher):
                   else int(searcher.K_static)),
         fast_ok=bool(searcher.fast_ok),
         island_of_exact_match=int(
-            searcher.model.island_of_exact_match or 0))
+            searcher.model.island_of_exact_match or 0),
+        join_h=np.asarray(searcher._join_h, dtype=np.uint64),
+        join_p=np.asarray(searcher._join_p, dtype=np.int64),
+        join_pos=np.asarray(searcher._join_pos, dtype=np.int64),
+        join_params=tuple(int(x) for x in searcher._join_params()))
 
 
-def searcher_from_reference(arrays):
+def searcher_from_reference(arrays, device=None):
     """A catch_tpu_torch ProbeSearcher holding the given scan state.
 
-    `arrays` maps REFERENCE_FIELDS to values (see reference_arrays).
-    The searcher has no Probe objects; `probes` is None, and the scan
-    reads the probe count from probe_codes.
+    `arrays` maps REFERENCE_FIELDS to values (see reference_arrays);
+    `device` is where its span scan runs.  The searcher has no Probe
+    objects; `probes` is None, and the scans read the probe count from
+    probe_codes.
     """
     missing = [f for f in REFERENCE_FIELDS if f not in arrays]
     if missing:
@@ -54,6 +63,7 @@ def searcher_from_reference(arrays):
                          island_of_exact_match=arrays[
                              "island_of_exact_match"])
     s.stats = {"candidates": 0}
+    s.device = device
     s.probes = None
     s.probe_codes = np.ascontiguousarray(arrays["probe_codes"],
                                          dtype=np.uint8)
@@ -63,4 +73,8 @@ def searcher_from_reference(arrays):
     for f in ("k_seed", "seed_mode", "Lmax", "lcf_static", "K_static",
               "fast_ok"):
         setattr(s, f, arrays[f])
+    s._join_h = np.asarray(arrays["join_h"], dtype=np.uint64)
+    s._join_p = np.asarray(arrays["join_p"], dtype=np.int64)
+    s._join_pos = np.asarray(arrays["join_pos"], dtype=np.int64)
+    s._join_kw = tuple(arrays["join_params"])
     return s

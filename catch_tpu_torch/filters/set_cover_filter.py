@@ -1,57 +1,90 @@
 """SetCoverFilter: probe selection by multi-universe set cover.
 
-Port of catch_tpu/filters/set_cover_filter.py (the constructor and
-_filter).  Every group takes the device scan of ops/scan_instance on the
-filter's `device`, reads the merged instance back once, and solves it
-with the lazy greedy solver on the host.  There is no size-based route
-to a host scan and no fallback: a failing scan raises.
+Port of catch_tpu/filters/set_cover_filter.py.  Every group takes the
+device scan of ops/scan_instance on the filter's `device`, reads the
+merged instance back once, and solves it with the lazy greedy solver on
+the host, in rank tiers.  Identification ranks and avoided-genome ranks
+come from the tolerant model's unmerged span scan (ops/scan_sparse) on
+the same device, merged there per (probe, strand).  There is no
+size-based route to a host scan and no fallback: a failing scan raises.
 
-Not ported yet (ROADMAP queue 1): identification ranks and avoided
-genomes (item 6, they need the unmerged span API), and custom cover
-functions.
+Not ported yet: custom cover functions (ROADMAP queue 1, item 12).
 """
 
 import logging
 import time
 
 import numpy as np
+import torch
 
 from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.filters.base import BaseFilter
-from catch_tpu_torch.ops import scan_instance, set_cover
+from catch_tpu_torch.ops import scan_instance, scan_sparse, set_cover
 from catch_tpu_torch.ops.cover import CoverModel, ProbeSearcher
-from catch_tpu_torch.utils import profiling
+from catch_tpu_torch.utils import profiling, seq_io
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["SetCoverFilter"]
+
+_RC_TABLE = str.maketrans("ACGT", "TGCA")
+
+
+def _reverse_complement(sequence):
+    """Reverse complement of A/C/G/T; every other character stays."""
+    return sequence[::-1].translate(_RC_TABLE)
 
 
 class SetCoverFilter(BaseFilter):
     """Selects candidate probes via greedy multi-universe set cover."""
 
     device_bound = True
-    # Without identification every group's output depends on that
-    # group alone.
-    group_local = True
+
+    @property
+    def group_local(self):
+        # Identification ranks count hits across ALL groupings, so the
+        # filter is only safe to run one group at a time when
+        # identification is off.  (Avoided-genome ranks scan only the
+        # group's own candidates against external FASTAs: group-local.)
+        return not self.identify
 
     def __init__(self, mismatches, lcf_thres, island_of_exact_match=0,
-                 custom_cover_range_fn=None, identify=False,
+                 mismatches_tolerant=None, lcf_thres_tolerant=None,
+                 island_of_exact_match_tolerant=None,
+                 custom_cover_range_fn=None,
+                 custom_cover_range_tolerant_fn=None, identify=False,
                  avoided_genomes=(), coverage=1.0, cover_extension=0,
-                 kmer_probe_map_k=20, *, device):
-        """Args follow catch_tpu's SetCoverFilter; `device` (a name or a
-        torch.device) is where the scan runs, checked by
-        device.resolve_device."""
-        if custom_cover_range_fn is not None:
+                 kmer_probe_map_k=20, kmer_probe_map_use_native_dict=False,
+                 *, device):
+        """Args follow catch_tpu's SetCoverFilter;
+        kmer_probe_map_use_native_dict is accepted for compatibility and
+        ignored.  `device` (a name or a torch.device) is where the scans
+        run, checked by device.resolve_device."""
+        if (custom_cover_range_fn is not None
+                or custom_cover_range_tolerant_fn is not None):
             raise NotImplementedError(
                 "custom cover functions are not ported to catch_tpu_torch "
-                "yet (ROADMAP queue 1)")
-        if identify or avoided_genomes:
-            raise NotImplementedError(
-                "identification and avoided genomes are not ported to "
-                "catch_tpu_torch yet (ROADMAP queue 1, item 6)")
+                "yet (ROADMAP queue 1, item 12)")
         self.device = resolve_device(device)
         self.model = CoverModel(mismatches, lcf_thres, island_of_exact_match)
+        if not mismatches_tolerant:
+            mismatches_tolerant = mismatches
+        if not lcf_thres_tolerant:
+            lcf_thres_tolerant = lcf_thres
+        if not island_of_exact_match_tolerant:
+            island_of_exact_match_tolerant = island_of_exact_match
+        self.tolerant_model = CoverModel(mismatches_tolerant,
+                                         lcf_thres_tolerant,
+                                         island_of_exact_match_tolerant)
+        if identify:
+            if (coverage <= 1.0 and coverage >= 0.25) or \
+               (coverage > 1 and coverage >= 5000):
+                logger.warning(
+                    "Identification is enabled but the required coverage "
+                    "is high; generally coverage should be small when "
+                    "performing identification")
+        self.identify = identify
+        self.avoided_genomes = list(avoided_genomes)
         self.coverage = coverage
         self.cover_extension = cover_extension
         self.kmer_probe_map_k = kmer_probe_map_k
@@ -80,6 +113,109 @@ class SetCoverFilter(BaseFilter):
         return (searcher, pid_of, sequences, np.array(seq_univ, np.int64),
                 np.array(seq_off, np.int64), np.array(seq_len, np.int64))
 
+    def _tolerant_bp_batched(self, searcher, sequences, rc_too=True):
+        """Per-searcher-probe bp covered across `sequences` (and their
+        reverse complements) under the tolerant model, from one span
+        scan on the device.
+
+        Merging is per (probe, strand-sequence), on the device with
+        segmented_merge: identical to summing find_probe_covers' merged
+        ranges per strand.  Returns int64[len(searcher.probes)] of total
+        covered bp.
+        """
+        strands = list(sequences)
+        if rc_too:
+            strands += [_reverse_complement(s) for s in sequences]
+        n_probes = len(searcher.probes)
+        if not strands or searcher.empty:
+            return np.zeros(n_probes, dtype=np.int64)
+        n_strands = len(strands)
+        if n_probes * n_strands >= scan_instance._PAIR_KEY_LIMIT:
+            raise ValueError(
+                f"{n_probes} probes x {n_strands} strands exceed the 31-bit "
+                "merge key")
+        p, s_idx, st, en = scan_sparse.scan_spans(searcher, strands,
+                                                  self.device)
+        t0 = time.time()
+        gk, gs, ge = scan_instance.segmented_merge(p * n_strands + s_idx,
+                                                   st, en)
+        bp = torch.zeros(n_probes, dtype=torch.int64, device=self.device)
+        bp.index_add_(0, gk // n_strands, ge - gs)
+        out = bp.cpu().numpy()
+        profiling.add_phase("span:merge_bp", time.time() - t0)
+        return out
+
+    # Avoided-genome sequences are scanned in batches of about this
+    # many bases so human-scale backgrounds stream through the span
+    # scan without materializing the whole FASTA.
+    _AVOID_BATCH_BP = 1 << 26
+
+    def _make_ranks(self, candidate_probes, target_genomes_grouped):
+        """Integer rank per set id (reference :614-735): tuples
+        (0, groupings_hit or 0) / (1, avoided_bp), densified.
+
+        One span scan per grouping (both strands at once) for
+        identification, and one per ~64 Mbp batch of avoided sequence.
+        """
+        need_searcher = self.identify or len(self.avoided_genomes) > 0
+        searcher = None
+        pid_of = None
+        if need_searcher:
+            searcher = ProbeSearcher(
+                candidate_probes, self.tolerant_model,
+                kmer_probe_map_k=self.kmer_probe_map_k, device=self.device)
+            probe_row = {p: i for i, p in enumerate(searcher.probes)}
+            pid_of = np.array(
+                [probe_row[p] for p in candidate_probes], dtype=np.int64)
+
+        n_cand = len(candidate_probes)
+        if self.identify:
+            hits = np.zeros(n_cand, dtype=np.int64)
+            for i, genomes_from_group in enumerate(target_genomes_grouped):
+                logger.info(
+                    "Computing coverage in grouping %d (of %d) to count "
+                    "number of groupings hit", i + 1,
+                    len(target_genomes_grouped))
+                seqs = [s for gnm in genomes_from_group for s in gnm.seqs]
+                bp = self._tolerant_bp_batched(searcher, seqs)
+                hits += (bp[pid_of] >= 1)
+            if np.any(hits == 0):
+                logger.critical(
+                    "There is a probe that does not 'hit' any target "
+                    "genome grouping, but every candidate probe "
+                    "should hit at least one")
+            rank_val = [(0, int(h)) for h in hits]
+        else:
+            rank_val = [(0, 0)] * n_cand
+
+        if self.avoided_genomes:
+            avoided_bp = np.zeros(n_cand, dtype=np.int64)
+            for fasta_path in self.avoided_genomes:
+                batch, batch_bp = [], 0
+                for sequence in seq_io.iterate_fasta(fasta_path):
+                    batch.append(sequence)
+                    batch_bp += len(sequence)
+                    if batch_bp >= self._AVOID_BATCH_BP:
+                        logger.info("Computing coverage across an "
+                                    "avoided-sequence batch (%d bp)",
+                                    batch_bp)
+                        avoided_bp += self._tolerant_bp_batched(
+                            searcher, batch)[pid_of]
+                        batch, batch_bp = [], 0
+                if batch:
+                    logger.info("Computing coverage across an "
+                                "avoided-sequence batch (%d bp)", batch_bp)
+                    avoided_bp += self._tolerant_bp_batched(
+                        searcher, batch)[pid_of]
+            for i in range(n_cand):
+                if avoided_bp[i] > 0:
+                    rank_val[i] = (1, int(avoided_bp[i]))
+
+        all_rank_tuples = sorted(set(rank_val))
+        tuple_rank_idx = {t: i for i, t in enumerate(all_rank_tuples)}
+        return np.array([tuple_rank_idx[t] for t in rank_val],
+                        dtype=np.int64)
+
     def _make_universe_p(self, target_genomes):
         """Required coverage per universe (reference :761-792)."""
         if self.coverage <= 1.0:
@@ -91,17 +227,16 @@ class SetCoverFilter(BaseFilter):
             p[j] = float(desired) / gnm.size()
         return p
 
-    def _solve_group(self, possible_probes, target_genomes, stats):
-        """Scan the group on the device and solve it; returns the
-        chosen candidate ids in pick order."""
+    def _solve_group(self, possible_probes, target_genomes, ranks, stats):
+        """Scan the group on the device and solve it in the rank tiers of
+        `ranks`; returns the chosen candidate ids in pick order."""
         t0 = time.time()
         searcher, pid_of, sequences, seq_univ, seq_off, seq_len = \
             self._prepare_scan(possible_probes, target_genomes)
         profiling.add_phase("set_cover:prepare", time.time() - t0)
         universe_p = self._make_universe_p(target_genomes)
-        # No identification or avoided genomes: every candidate shares
-        # one rank.
-        rank_idx = np.zeros(len(possible_probes), dtype=np.int32)
+        rank_vals = np.unique(ranks)
+        rank_idx = np.searchsorted(rank_vals, ranks).astype(np.int32)
         costs = np.ones(len(possible_probes), dtype=np.float32)
         t0 = time.time()
         dev, perm = scan_instance.scan_to_boundary_instance(
@@ -109,7 +244,8 @@ class SetCoverFilter(BaseFilter):
             len(target_genomes), self.cover_extension, universe_p, pid_of,
             self.device)
         inst = scan_instance.instance_to_host(
-            dev, perm, pid_of, len(possible_probes), rank_idx, 1, costs)
+            dev, perm, pid_of, len(possible_probes), rank_idx,
+            len(rank_vals), costs)
         stats["scan_seconds"] += time.time() - t0
         t0 = time.time()
         chosen = set_cover.solve_instance(inst)
@@ -137,8 +273,19 @@ class SetCoverFilter(BaseFilter):
             if len(possible_probes) == 0:
                 selected_probes.append([])
                 continue
+            t0 = time.time()
+            ranks = self._make_ranks(possible_probes,
+                                     target_genomes_grouped)
+            profiling.add_phase("set_cover:ranks", time.time() - t0)
             chosen = self._solve_group(possible_probes, target_genomes,
-                                       stats)
+                                       ranks, stats)
+            n_min_rank = int(np.sum(ranks[chosen] > ranks.min())) \
+                if len(chosen) else 0
+            if n_min_rank:
+                logger.warning(
+                    "The solution for group %d chose %d probes with rank "
+                    "above the minimum (e.g., probes hitting avoided "
+                    "genomes or multiple groupings)", group_i, n_min_rank)
             # Deterministic output order: ascending candidate id.
             selected_probes.append(
                 [possible_probes[i] for i in np.sort(chosen)])

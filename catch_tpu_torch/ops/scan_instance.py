@@ -344,8 +344,6 @@ def _verify_chunk_plain(mega, codes, lens, p, a, seq_starts, seq_ends,
                         seed_req, fast_ok, ext, nU):
     """The window math of catch_tpu _stage_c_jit, with the window
     indexed from the alignment a itself."""
-    dev = p.device
-    L = codes.shape[1]
     n_seqs = seq_ends.numel()
     sid = torch.clamp(torch.searchsorted(seq_ends, a, side="right"),
                       0, n_seqs - 1)
@@ -357,8 +355,38 @@ def _verify_chunk_plain(mega, codes, lens, p, a, seq_starts, seq_ends,
     ov = torch.clamp(en - start, min=0)
     n_seq = s_hi - s_lo
     thres = torch.minimum(torch.clamp(plen, max=lcf), n_seq)
+    rows, sp_s, sp_e = windows_plain(
+        mega, codes, p, a, start, ov, thres, n_seq, K=K, k_seed=k_seed,
+        seed_req=seed_req, fast_ok=fast_ok)
+    # Chromosome-local, extended, clamped, offset into the genome.
+    sr = sid[rows]
+    es = torch.clamp(sp_s - seq_starts[sr] - ext, min=0)
+    ee = torch.minimum(sp_e - seq_starts[sr] + ext, seq_lens[sr])
+    key = p[rows] * nU + univ_of_seq[sr]
+    return key, es + chrom_off[sr], ee + chrom_off[sr]
+
+
+def windows_plain(mega, codes, p, a, start, ov, thres, n_seq, *, K, k_seed,
+                  seed_req, fast_ok):
+    """The qualifying windows of candidates (p, a), in plain PyTorch.
+
+    Each candidate compares probe row p with the corpus at alignment a
+    over the band [start - a, start - a + ov); n_seq is the length of
+    the sequence that holds it, thres its cover length threshold.  The
+    window math is catch_tpu's (_stage_c_jit and scan_sparse
+    _verify_core): sentinel-padded sorted mismatch positions, maximal
+    <= K-mismatch windows of length >= thres holding a >= seed_req exact
+    run, and the fast path, where the match count alone decides a
+    candidate whose sequence is long enough.
+
+    Returns (rows, sp_s, sp_e) int64: the candidate of each window and
+    its [start, end) in corpus coordinates; candidates in order,
+    windows left to right (the order jnp.nonzero gives).
+    """
+    dev = p.device
+    L = codes.shape[1]
     i_lo = start - a
-    i_hi = torch.maximum(en - a, i_lo)
+    i_hi = i_lo + ov
 
     j = torch.arange(L, dtype=torch.int64, device=dev)
     seq_vals = mega[a[:, None] + j[None, :]]
@@ -399,12 +427,7 @@ def _verify_chunk_plain(mega, codes, lens, p, a, seq_starts, seq_ends,
         fr = is_fast[rows]
         sp_s = torch.where(fr, start[rows], sp_s)
         sp_e = torch.where(fr, start[rows] + ov[rows], sp_e)
-    # Chromosome-local, extended, clamped, offset into the genome.
-    sr = sid[rows]
-    es = torch.clamp(sp_s - seq_starts[sr] - ext, min=0)
-    ee = torch.minimum(sp_e - seq_starts[sr] + ext, seq_lens[sr])
-    key = p[rows] * nU + univ_of_seq[sr]
-    return key, es + chrom_off[sr], ee + chrom_off[sr]
+    return rows, sp_s, sp_e
 
 
 # ----------------------------------------------------------------------
@@ -610,15 +633,15 @@ def prepare_corpus(searcher, sequences, seq_univ, chrom_off, pid_of,
     return state, total, perm
 
 
-def _mark(searcher, device, key, t0):
-    """Book wall time since t0 as phase scan:<key>, after the device
+def _mark(searcher, device, key, t0, prefix="scan"):
+    """Book wall time since t0 as phase <prefix>:<key>, after the device
     has finished the phase's work."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     phases = searcher.stats.setdefault("phase_seconds", {})
     phases[key] = phases.get(key, 0.0) + dt
-    profiling.add_phase("scan:" + key, dt)
+    profiling.add_phase(f"{prefix}:{key}", dt)
     return time.time()
 
 

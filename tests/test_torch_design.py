@@ -16,6 +16,7 @@ import torch
 
 from catch_tpu.cli import design as jdesign
 from catch_tpu_torch import _build
+from catch_tpu_torch.analysis import Analyzer
 from catch_tpu_torch.cli import design as tdesign
 from catch_tpu_torch.designer import ProbeDesigner
 from catch_tpu_torch.device import resolve_device
@@ -94,7 +95,7 @@ def test_cli_ebola10_m2_equals_catch_tpu(tmp_path, monkeypatch):
 _NO_JAX = r'''
 import sys
 {block}
-from catch_tpu_torch.cli import design
+from catch_tpu_torch.cli import analyze_probe_coverage, design
 design.main(design.init_and_parse_args(
     [{fasta!r}, "-o", {out!r}, "-pl", "100", "-m", "2", "-l", "60",
      "-e", "50", "--device", "cpu"]))
@@ -133,7 +134,7 @@ def test_port_runs_without_jax(tmp_path, block):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--identify"], ["--avoid-genomes", "x.fasta"],
+    ["--custom-hybridization-fn", "m.py", "f"], ["--add-adapters"],
     ["--filter-with-lsh-minhash", "0.6"],
     ["--cluster-and-design-separately", "0.15"],
     ["--add-reverse-complements"], ["--num-devices", "2"],
@@ -159,13 +160,15 @@ def test_cuda_without_cuda_raises(monkeypatch, tmp_path):
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        SetCoverFilter(2, 60, identify=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        SetCoverFilter(2, 60, avoided_genomes=["a.fasta"], device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 12"):
         SetCoverFilter(2, 60, custom_cover_range_fn=("m.py", "f"),
                        device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        SetCoverFilter(2, 60, custom_cover_range_tolerant_fn=("m.py", "f"),
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Analyzer([], 2, 60, [[]], custom_cover_range_fn=("m.py", "f"),
+                 device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         ProbeDesigner([[]], [], 100, 50, cluster_threshold=0.1)
     probes = [Probe("ACGT" * 25)]
