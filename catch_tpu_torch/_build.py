@@ -61,6 +61,13 @@ _SIGNATURES = {
     "ct_merge_carry": [_P, _P, _I64, _P, _P],
     "ct_merge_fixup": [_P, _P, _P, _I64, _P, _P, _P],
     "ct_merge_emit": [_P, _P, _P, _P, _I64, _P, _P, _P, _P],
+    "ct_minhash_dists": [_P, _I64, _P, _I64, _I32, _P, _P],
+    "ct_minhash_codes": [_P, _I64, _P, _I64, _I32, _I32, _I32, _P, _P],
+    "ct_minhash_caps": [_P, _I64, _P, _I64, _I32, _I32, _P, _P],
+    "ct_minhash_assign": [_P, _I64, _P, _I64, _I32, _I32, _P, _P, _P],
+    "ct_minhash_sig": [_P, _I64, _I32, _P, _I32, _P, _P],
+    "ct_pack_rows": [_P, _P, _P, _I64, _I32, _P, _P, _P],
+    "ct_pack_escapes": [_P, _P, _P, _P, _I64, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

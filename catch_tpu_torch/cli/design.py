@@ -2,15 +2,18 @@
 """Design probes for genome capture on a GPU (main executable).
 
 The port of catch_tpu/cli/design.py for the flags the slices serve:
-datasets as FASTA files, candidate tiling, duplicate removal and set
-cover under the mismatch/LCS model, identification, avoided genomes,
-the tolerant model and the coverage analysis, with the same flag names
-and defaults.  `--device` (default `cuda`) says where the scan runs; a
+datasets as FASTA files, candidate tiling, duplicate or near-duplicate
+removal (MinHash or Hamming LSH), MinHash clustering of the inputs with
+a design per cluster, set cover under the mismatch/LCS model,
+identification, avoided genomes, the tolerant model and the coverage
+analysis, with the same flag names and the same 'basic' and 'large'
+defaults.  `--device` (default `cuda`) says where the kernels run; a
 missing CUDA device is an error, never a quiet switch to the CPU.  Every
 other flag of catch_tpu's CLI is refused with the ROADMAP item that
 will bring it.
 
-Run as ``python -m catch_tpu_torch.cli.design``.
+Run as ``python -m catch_tpu_torch.cli.design``, or with the 'large'
+defaults as ``python -m catch_tpu_torch.cli.design_large``.
 """
 
 import argparse
@@ -22,19 +25,18 @@ from catch_tpu_torch.analysis import coverage as coverage_analysis
 from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.filters import base as filter_base
 from catch_tpu_torch.filters.duplicate import DuplicateFilter
+from catch_tpu_torch.filters.near_duplicate import (
+    NearDuplicateFilterWithHammingDistance, NearDuplicateFilterWithMinHash)
 from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
 from catch_tpu_torch.utils import log, seq_io, version
+
+_ARGS_TYPES = ("basic", "large")
 
 # Flags of catch_tpu/cli/design.py that the port refuses, with where
 # in ROADMAP.md queue 1 they come back.
 _REFUSED = {
     ("--write-taxid-acc", "--ncbi-api-key"):
         "NCBI downloads need the network",
-    ("--cluster-and-design-separately",
-     "--cluster-and-design-separately-method",
-     "--cluster-from-fragments", "--filter-with-lsh-hamming"):
-        "ROADMAP queue 1, item 7",
-    ("--filter-with-lsh-minhash",): "ROADMAP queue 1, item 8",
     ("--num-devices",): "ROADMAP queue 1, item 10",
     ("--custom-hybridization-fn", "--custom-hybridization-fn-tolerant",
      "--filter-from-fasta", "--skip-set-cover", "--add-adapters",
@@ -58,6 +60,13 @@ def main(args):
     logger = logging.getLogger(__name__)
     device = resolve_device(args.device)
 
+    if args.args_type == "large":
+        logger.warning(
+            "design_large relaxes several defaults (e.g. -m, -e) to "
+            "favor runtime over probe count; see 'design_large --help' "
+            "for the values, and pass any argument explicitly to "
+            "override its relaxed default.")
+
     genomes_grouped = []
     genomes_grouped_names = []
     for ds in args.dataset:
@@ -71,6 +80,29 @@ def main(args):
     if args.limit_target_genomes:
         genomes_grouped = [genomes[:args.limit_target_genomes]
                            for genomes in genomes_grouped]
+
+    if args.args_type != "large":
+        total_input_size = sum(sum(g.size() for g in genomes)
+                               for genomes in genomes_grouped)
+        if ((len(args.dataset) > 1 and not args.identify)
+                or total_input_size > 10000000):
+            recommended = []
+            if (not args.filter_with_lsh_hamming
+                    and not args.filter_with_lsh_minhash):
+                recommended.append("--filter-with-lsh-minhash 0.6")
+            if not args.cluster_and_design_separately:
+                recommended.append("--cluster-and-design-separately 0.15")
+            if not args.cluster_from_fragments:
+                recommended.append("--cluster-from-fragments 50000")
+            rec_str = ""
+            if recommended:
+                rec_str = (" Suggested flags: "
+                           + ", ".join("'" + x + "'" for x in recommended))
+            logger.warning(
+                "This is a large input; if runtime or memory become a "
+                "problem, design_large (or the individual speed flags "
+                "it enables) trades a slightly larger probe set for a "
+                f"much cheaper design.{rec_str}")
 
     avoided_genomes_fasta = []
     for ag in args.avoid_genomes or ():
@@ -113,6 +145,43 @@ def main(args):
             "--small-seq-skip and --small-seq-min are mutually "
             "exclusive")
 
+    if args.cluster_and_design_separately and args.identify:
+        raise Exception(
+            "--identify needs the per-dataset genome groupings, which "
+            "--cluster-and-design-separately collapses; the two cannot "
+            "be combined")
+    if args.cluster_from_fragments and \
+            not args.cluster_and_design_separately:
+        raise Exception(
+            "--cluster-from-fragments only applies when "
+            "--cluster-and-design-separately is set")
+
+    if (args.filter_with_lsh_hamming is not None
+            and args.filter_with_lsh_minhash is not None):
+        raise Exception("--filter-with-lsh-hamming and "
+                        "--filter-with-lsh-minhash are mutually "
+                        "exclusive")
+    if args.filter_with_lsh_hamming is not None:
+        if args.filter_with_lsh_hamming > args.mismatches:
+            logger.warning(
+                "FILTER_WITH_LSH_HAMMING (%d) above MISMATCHES (%d) "
+                "can collapse probes the model distinguishes, so the "
+                "design may fall short of the requested coverage",
+                args.filter_with_lsh_hamming, args.mismatches)
+        dedup = NearDuplicateFilterWithHammingDistance(
+            args.filter_with_lsh_hamming, args.probe_length, device=device)
+    elif args.filter_with_lsh_minhash is not None:
+        if args.mismatches < 3:
+            logger.warning(
+                "At MISMATCHES=%d (<= 2), MinHash near-duplicate "
+                "collapsing (especially with a large threshold) can "
+                "leave the design short of the requested coverage",
+                args.mismatches)
+        dedup = NearDuplicateFilterWithMinHash(
+            args.filter_with_lsh_minhash, device=device)
+    else:
+        dedup = DuplicateFilter()
+
     if args.max_num_processes is not None:
         filter_base.set_max_num_processes_for_filter_over_groupings(
             args.max_num_processes)
@@ -129,11 +198,21 @@ def main(args):
         kmer_probe_map_use_native_dict=(
             args.use_native_dict_when_finding_tolerant_coverage),
         device=device)
+    cluster_kw = {}
+    if args.cluster_and_design_separately:
+        # --skip-set-cover is refused (item 12), so the clusters merge
+        # after the set cover.
+        cluster_kw = dict(
+            cluster_threshold=args.cluster_and_design_separately,
+            cluster_merge_after=scf,
+            cluster_method=args.cluster_and_design_separately_method,
+            cluster_fragment_length=args.cluster_from_fragments)
     pb = probe_designer.ProbeDesigner(
-        genomes_grouped, [DuplicateFilter(), scf],
+        genomes_grouped, [dedup, scf],
         probe_length=args.probe_length, probe_stride=args.probe_stride,
         allow_small_seqs=args.small_seq_min,
-        seq_length_to_skip=args.small_seq_skip)
+        seq_length_to_skip=args.small_seq_skip, device=device,
+        **cluster_kw)
     pb.design()
 
     seq_io.write_probe_fasta(pb.final_probes, args.output_probes)
@@ -167,8 +246,13 @@ def main(args):
     return pb
 
 
-def init_and_parse_args(argv=None):
-    """Parse command-line arguments (catch_tpu's 'basic' defaults)."""
+def init_and_parse_args(argv=None, args_type="basic"):
+    """Parse command-line arguments with catch_tpu's 'basic' or 'large'
+    defaults."""
+    if args_type not in _ARGS_TYPES:
+        raise ValueError(
+            f"Argument type '{args_type}' is invalid; it must be one of "
+            f"{_ARGS_TYPES}")
     parser = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
 
@@ -183,7 +267,8 @@ def init_and_parse_args(argv=None):
     parser.add_argument("-ps", "--probe-stride", type=int, default=50,
         help=("Generate candidate probes from the input that are "
               "separated by PROBE_STRIDE nt"))
-    parser.add_argument("-m", "--mismatches", type=int, default=0,
+    parser.add_argument("-m", "--mismatches", type=int,
+        default={"basic": 0, "large": 5}[args_type],
         help=("Allow for MISMATCHES mismatches when determining whether "
               "a probe covers a sequence"))
     parser.add_argument("-l", "--lcf-thres", type=int,
@@ -207,7 +292,8 @@ def init_and_parse_args(argv=None):
         default=1.0,
         help=("Fraction of each target genome to cover (float in "
               "[0,1]), or number of bp to cover (int > 1)"))
-    parser.add_argument("-e", "--cover-extension", type=int, default=0,
+    parser.add_argument("-e", "--cover-extension", type=int,
+        default={"basic": 0, "large": 50}[args_type],
         help="Extend coverage on each side of a probe by this many nt")
     parser.add_argument("-i", "--identify", dest="identify",
         action="store_true",
@@ -234,6 +320,48 @@ def init_and_parse_args(argv=None):
     parser.add_argument("--write-probe-map-counts-to-tsv",
         help=("(Optional) File for a TSV of the number of sequences "
               "each probe maps to (not counting reverse complements)"))
+
+    def check_cluster_and_design_separately(val):
+        fval = float(val)
+        if 0 < fval <= 0.5:
+            return fval
+        raise argparse.ArgumentTypeError(
+            "%s is an invalid average nucleotide dissimilarity" % val)
+
+    parser.add_argument("--cluster-and-design-separately",
+        type=check_cluster_and_design_separately,
+        default={"basic": None, "large": 0.15}[args_type],
+        help=("(Optional) Cluster input sequences at this average "
+              "nucleotide dissimilarity threshold (in (0,0.5]; ~0.15 "
+              "recommended), design separately per cluster, and merge"))
+    parser.add_argument("--cluster-and-design-separately-method",
+        choices=["choose", "simple", "hierarchical"], default="choose",
+        help=("(Optional) Clustering method: connected components "
+              "('simple'), agglomerative ('hierarchical'), or a "
+              "heuristic choice ('choose')"))
+    parser.add_argument("--cluster-from-fragments", type=int,
+        default={"basic": None, "large": 50000}[args_type],
+        help=("(Optional) Break sequences into fragments of this length "
+              "(~50000 recommended) and cluster the fragments; requires "
+              "--cluster-and-design-separately"))
+    parser.add_argument("--filter-with-lsh-hamming", type=int,
+        help=("(Optional) Filter near-duplicate candidate probes via "
+              "Hamming-distance LSH at this distance (commensurate with "
+              "but not greater than MISMATCHES)"))
+
+    def check_filter_with_lsh_minhash(val):
+        fval = float(val)
+        if 0.0 <= fval <= 1.0:
+            return fval
+        raise argparse.ArgumentTypeError(
+            "%s is an invalid Jaccard distance" % val)
+
+    parser.add_argument("--filter-with-lsh-minhash",
+        type=check_filter_with_lsh_minhash,
+        default={"basic": None, "large": 0.6}[args_type],
+        help=("(Optional) Filter near-duplicate candidate probes via "
+              "MinHash LSH at this maximum Jaccard distance (10-mers; "
+              "values ~0.5-0.7 typical)"))
     parser.add_argument("--limit-target-genomes", type=int,
         help="(Optional) Use only the first N target genomes per dataset")
     parser.add_argument("--small-seq-skip", type=int,
@@ -264,7 +392,8 @@ def init_and_parse_args(argv=None):
         help=("Accepted for compatibility with the reference CLI; no "
               "shared-memory dict exists in this implementation"))
     parser.add_argument("--device", default="cuda",
-        help="Device of the scan: 'cuda' (or 'cuda:N') or 'cpu'")
+        help=("Device of the kernels (scans, clustering, MinHash "
+              "signatures): 'cuda' (or 'cuda:N') or 'cpu'"))
     parser.add_argument("--debug", dest="log_level",
         action="store_const", const=logging.DEBUG,
         default=logging.WARNING, help="Debug output")
@@ -276,7 +405,9 @@ def init_and_parse_args(argv=None):
     for flags, reason in _REFUSED.items():
         parser.add_argument(*flags, nargs="*", action=_Refuse,
                             help=f"not supported yet: {reason}")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    args.args_type = args_type
+    return args
 
 
 def run():

@@ -4,16 +4,23 @@ This system has no weights.  The state a scan reads is the encoded
 probe set, its seed parameters and the span scan's minimizer join table;
 `searcher_from_reference` builds the port's ProbeSearcher from those
 fields as catch_tpu's ProbeSearcher holds them (numpy arrays and ints),
-so both packages scan and join with exactly the same state.  It reads
-plain fields and imports nothing of catch_tpu.
+so both packages scan and join with exactly the same state.  The
+clustering and the near-duplicate filter read MinHash state instead:
+`signature_matrix` turns either package's signatures into the tensor
+the clustering holds, and `minhash_params` draws the near-duplicate
+filter's hash parameters from either package's MinHashFamily.  The
+module reads plain fields and imports nothing of catch_tpu.
 """
 
 import numpy as np
+import torch
 
 from catch_tpu_torch.ops import encode
 from catch_tpu_torch.ops.cover import CoverModel, ProbeSearcher
+from catch_tpu_torch.ops.minhash import MERSENNE_P
 
-__all__ = ["REFERENCE_FIELDS", "reference_arrays", "searcher_from_reference"]
+__all__ = ["REFERENCE_FIELDS", "reference_arrays", "searcher_from_reference",
+           "signature_matrix", "minhash_params"]
 
 # The fields of catch_tpu.ops.cover.ProbeSearcher that the scan reads.
 REFERENCE_FIELDS = ("probe_codes", "probe_lens", "alphabet_lut", "k_seed",
@@ -78,3 +85,30 @@ def searcher_from_reference(arrays, device=None):
     s._join_pos = np.asarray(arrays["join_pos"], dtype=np.int64)
     s._join_kw = tuple(arrays["join_params"])
     return s
+
+
+def signature_matrix(signatures, device):
+    """int32 [n, N] tensor on `device` of a list of n MinHash signature
+    tuples of length N, as make_signatures_with_minhash of either
+    package gives them.  Raises where a value lies outside
+    [0, 2^31 - 1), which int32 could not hold or no hash gives."""
+    mat = np.asarray(signatures, dtype=np.int64)
+    if mat.size == 0:
+        mat = mat.reshape(len(signatures), 0)
+    if mat.ndim != 2:
+        raise ValueError("signatures must be n tuples of one length")
+    if mat.size and (mat.min() < 0 or mat.max() >= MERSENNE_P):
+        raise ValueError("signature values must lie in [0, 2^31 - 1)")
+    return torch.from_numpy(mat.astype(np.int32)).to(device)
+
+
+def minhash_params(family, H):
+    """int64 [H, 2] table of (a, b) for H hash functions, drawn from
+    `family`'s generator (a MinHashFamily of either package) in the order
+    of BatchedNearNeighbor._build_minhash: for each function in turn, a
+    in [1, 2^31 - 1] and then b in [0, 2^31 - 1]."""
+    ab = np.empty((H, 2), dtype=np.int64)
+    for t in range(H):
+        ab[t, 0] = int(family._rng.integers(1, MERSENNE_P + 1))
+        ab[t, 1] = int(family._rng.integers(0, MERSENNE_P + 1))
+    return ab

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Smoke run of catch_tpu_torch's design and span paths on one NVIDIA GPU.
+"""Smoke run of catch_tpu_torch's design, span and design_large paths on one
+NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch, CUDA, nvcc and
      triton versions;
-  2. the build of the six CUDA kernels from catch_tpu_torch/csrc/;
-  3. the four design-scan kernels against their plain-PyTorch twins on
-     the card, on the inputs the ebola175 design gives them: outputs
-     must be exactly equal; median times of both from CUDA events;
+  2. the build of the nine CUDA kernels from catch_tpu_torch/csrc/;
+  3. the five design-scan kernels (pack_merged, the readback, among them)
+     against their plain-PyTorch twins on the card, on the inputs the
+     ebola175 design gives them: outputs
+     must be exactly equal; the median, min and max times of both from
+     CUDA events;
   4. ebola5 (-pl 100 -m 0 -e 0) through catch_tpu_torch.cli.design on
      cuda; the probe set must equal tests/data/golden/ref_ebola5_m0.fasta;
   5. ebola175 (-pl 100 -m 2 -l 60 -e 50), the first 175 genomes of
      tests/data/zaire_ebolavirus.fasta.gz, through the same CLI on cuda,
      with every kernel's launch count set to 0 just before; the output
      must equal tests/data/golden/torch_ebola175_m2.fasta byte for byte,
-     and the four design kernels must have launched;
+     and the five design kernels must have launched;
   6. the two span-scan kernels, expand_join and verify_spans, against
      their twins on the inputs the first batch (75 Mbp, both strands) of
      phase 8's avoid scan gives them: exactly equal; CUDA-event medians;
@@ -30,20 +33,49 @@ Phases (any failure exits non-zero and prints no result line):
      tests/data/golden/avoid100m_ranks.tsv;
   9. catch_tpu_torch.cli.analyze_probe_coverage on ebola175 with the
      probes of torch_ebola175_m2.fasta (-m 2 -l 60 -e 50) on cuda,
-     counting launches; both TSVs must equal their goldens.
+     counting launches; both TSVs must equal their goldens;
+ 10. design_large through catch_tpu_torch.cli.design_large on cuda, with
+     its defaults, on the 2,000-genome influenza-like corpus
+     (influenza_like_segments(n_genomes=2000, seed=0), 8 segment FASTAs,
+     27,176,000 bp; greedy clustering), counting launches: the probe
+     FASTA must equal tests/data/golden/flu2000_design_large.fasta byte
+     for byte, and minhash_assign, minhash_caps, minhash_sig and the
+     five design-scan kernels must have launched;
+ 11. the same on the 10,000-genome corpus of bench.py:107-127 (80,000
+     sequences, 135,880,000 bp): the clusters must equal
+     flu10k_clusters.tsv.gz and the FASTA flu10k_design_large.fasta; the
+     run goes under torch.profiler (CUDA activity only), which gives the
+     card's busy share, and keeps the inputs of the largest
+     near-duplicate group's minhash_sig call, of the last full greedy
+     wave, of the largest minhash_caps call and of the largest cluster's
+     pack_merged call;
+ 12. the clustering step of design_large's defaults on the 51 Mbp scale
+     corpus of bench.py:130-158 (2,700 mutated ebola genomes): 'choose'
+     gives 'simple' (minhash_codes), and with fragments of 10,000 nt
+     'hierarchical' (minhash_dists); both must equal their goldens;
+ 13. minhash_caps' four entry points, minhash_sig and pack_merged against
+     their twins at those shapes (phase 11's group, wave, caps call and
+     cluster, phase 12's fragments and the first 8,192 flu10k
+     sequences): exactly equal, the float32 distances bit for bit;
+     CUDA-event medians, min and max.
 
 Each phase prints its wall seconds as it ends.  The line before the
 last is the card's name and power limit; the one before it a JSON
-object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}.  Scratch files go under build/chip_smoke/.
+object with one entry per kernel entry point (times, launches on its
+path, and the bound: bytes over 3.35 TB/s or operations over 67 T/s,
+the H100's non-tensor 32-bit rate, whichever is larger); the last line
+is {"ok": true, "device": {...}}.  Scratch files go under
+build/chip_smoke/.
 """
 
+import contextlib
 import gzip
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -55,11 +87,27 @@ REPLACES = {
     "lookup_expand": "catch_tpu/ops/scan_instance.py:217",
     "verify_windows": "catch_tpu/ops/scan_instance.py:382",
     "segmented_merge": "catch_tpu/ops/scan_instance.py:537",
+    "pack_merged": "catch_tpu/ops/scan_instance.py:611",
     "expand_join": "catch_tpu/ops/scan_sparse.py:192",
     "verify_spans": "catch_tpu/ops/scan_sparse.py:65",
+    "minhash_dists": "catch_tpu/utils/cluster.py:85",
+    "minhash_codes": "catch_tpu/utils/cluster.py:120",
+    "minhash_caps": "catch_tpu/utils/cluster.py:238",
+    "minhash_assign": "catch_tpu/utils/cluster.py:205",
+    "minhash_sig": "catch_tpu/utils/lsh.py:257",
 }
 SOURCES = {name: f"catch_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["verify_spans"] = "catch_tpu_torch/csrc/verify_windows.cu"
+for _name in ("minhash_dists", "minhash_codes", "minhash_assign"):
+    SOURCES[_name] = "catch_tpu_torch/csrc/minhash_caps.cu"
+DESIGN_KERNELS = ["rolling_hash", "lookup_expand", "verify_windows",
+                  "segmented_merge", "pack_merged"]
+
+# The H100's published rates (SXM, 700 W): device memory 3.35 TB/s, and
+# 67 T operations/s outside the tensor cores, the rate used for these
+# integer and compare kernels.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 
 def fail(msg):
@@ -124,6 +172,65 @@ def write_background(path, frag_src):
     return path
 
 
+def write_flu(n_genomes):
+    """The influenza-like corpus of bench.py:107-127 at n_genomes: 8
+    segment FASTAs from influenza_like_segments(seed=0), one dataset
+    each.  Returns (paths, total bp)."""
+    from catch_tpu_torch.utils.synthetic import (influenza_like_segments,
+                                                 write_segment_fastas)
+
+    segs, subtype_of = influenza_like_segments(n_genomes=n_genomes, seed=0)
+    paths = write_segment_fastas(segs, subtype_of,
+                                 os.path.join(WORK, f"flu{n_genomes}"))
+    return paths, sum(s.size for s in segs)
+
+
+SCALE_STRAINS, SCALE_COPIES_PER = 30, 90
+SCALE_STRAIN_MUT, SCALE_COPY_MUT = 0.12, 0.005
+
+
+def scale_seqs():
+    """The 51 Mbp scale corpus of bench.py:130-158: 30 strains mutated
+    12% from the first ebola genome, 90 copies of each mutated 0.5%
+    further, from numpy.random.default_rng(0)."""
+    import numpy as np
+
+    from catch_tpu_torch.utils import seq_io
+
+    base = np.frombuffer(seq_io.read_genomes_from_fasta(FIXTURE)[0]
+                         .seqs[0].encode(), dtype=np.uint8)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    rng = np.random.default_rng(0)
+
+    def mutate(seq, rate):
+        out = seq.copy()
+        m = np.flatnonzero(rng.random(len(out)) < rate)
+        out[m] = bases[rng.integers(0, 4, size=len(m))]
+        return out
+
+    seqs = []
+    for _ in range(SCALE_STRAINS):
+        strain = mutate(base, SCALE_STRAIN_MUT)
+        for _ in range(SCALE_COPIES_PER):
+            seqs.append(mutate(strain, SCALE_COPY_MUT).tobytes().decode())
+    return seqs
+
+
+def read_cluster_ranks(path):
+    """A cluster golden: one cluster rank per sequence."""
+    with gzip.open(path, "rt") as f:
+        return [int(line) for line in f]
+
+
+def cluster_ranks(clusters, n):
+    """Each sequence's cluster rank, clusters in the order given."""
+    rank = [-1] * n
+    for r, members in enumerate(clusters):
+        for i in members:
+            rank[i] = r
+    return rank
+
+
 def fasta_records(path):
     recs, header, seq = set(), None, []
     for line in open(path):
@@ -139,9 +246,11 @@ def fasta_records(path):
     return recs
 
 
-def cuda_ms(torch, fn, reps):
-    """Median milliseconds of fn() from CUDA events, after a warm-up."""
-    fn()
+def cuda_ms(torch, fn, reps, warm=True):
+    """(median, min, max) milliseconds of fn() from CUDA events, after a
+    warm-up call unless the caller has just made one."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -152,18 +261,34 @@ def cuda_ms(torch, fn, reps):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return statistics.median(times), min(times), max(times)
 
 
 def max_abs_err(torch, got, want):
-    """Max |got - want| over tuples of int64 tensors of equal shapes."""
+    """Max |got - want| over tuples of tensors of equal shapes and types.
+    A float32 pair that differs in any bit counts at least 1."""
     err = 0
     for g, w in zip(got, want):
-        if g.shape != w.shape:
-            fail(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
-        if g.numel():
-            err = max(err, int((g - w).abs().max()))
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{g.dtype} {tuple(g.shape)} != {w.dtype} {tuple(w.shape)}")
+        if not g.numel():
+            continue
+        if g.is_floating_point():
+            err = max(err, float((g - w).abs().max()))
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                err = max(err, 1)
+        else:
+            err = max(err, int((g.to(torch.int64)
+                                - w.to(torch.int64)).abs().max()))
     return err
+
+
+def bound(work):
+    """(bound ms, what bounds it) of (bytes moved, operations)."""
+    nbytes, ops = work
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_inputs(torch, device):
@@ -241,34 +366,78 @@ def check_kernels(torch, device):
     print(f"ebola175 shapes: {int(q.numel())} sample hashes, "
           f"{int(pc.numel())} candidate pairs, {int(key.numel())} spans",
           flush=True)
+    # Bytes (each input read once, each output written once) and
+    # operations each function needs on these inputs: K1 two multiply-
+    # adds per code of each window; K2 a binary search per sample and a
+    # store per pair; K3 a compare per aligned probe position; K4 a
+    # pass over each merge's input.
+    n_hash = P * row + n_samples
+    n_tbl, n_q, n_pairs = tbl_h.numel(), q.numel(), pc.numel()
+    merged = k4(si.segmented_merge)
+    n_in, n_mid, n_out = key.numel(), merged[0].numel(), merged[3].numel()
+    b_pos = si.pack_width(int((st["chrom_off"] + st["seq_lens"]).max()))
     return compare(torch, [
-        ("rolling_hash", k1, si._rolling_hash_plain, si.rolling_hash, 20),
-        ("lookup_expand", k2, si._lookup_expand_plain, si.lookup_expand, 10),
+        ("rolling_hash", k1, si._rolling_hash_plain, si.rolling_hash, 20,
+         (flat.numel() + x["total"] + 8 * n_hash, 2 * kj * n_hash)),
+        ("lookup_expand", k2, si._lookup_expand_plain, si.lookup_expand, 10,
+         (8 * (3 * n_tbl + n_q) + 16 * n_pairs,
+          n_q * max(1, (n_tbl - 1).bit_length()) + n_pairs)),
         ("verify_windows", k3, si._verify_windows_plain, si.verify_windows,
-         5),
+         5, (x["total"] + st["codes"].numel() + 16 * n_pairs
+             + 24 * key.numel(), n_pairs * L)),
         ("segmented_merge", k4, si._segmented_merge_plain,
-         si.segmented_merge, 10),
+         si.segmented_merge, 10,
+         (24 * (n_in + 2 * n_mid + n_out), n_in + n_mid)),
+        pack_case(si, merged[:3], b_pos, "ebola175"),
     ])
 
 
-def compare(torch, cases):
+def pack_case(si, rows, b_pos, what):
+    """The compare case of pack_merged on merged rows: K9 reads each row
+    once (24 bytes) and writes 4 + b_pos bytes of it and 24 bytes per
+    escape, with an operation per byte it writes."""
+    n = rows[0].numel()
+    n_esc = si._pack_merged_plain(*rows, b_pos)[1].numel()
+    print(f"pack_merged shapes ({what}): {n} merged rows, b_pos={b_pos}, "
+          f"{n_esc} escapes", flush=True)
+    out_bytes = (4 + b_pos) * n + 24 * n_esc
+    return ("pack_merged", lambda f: f(*rows, b_pos), si._pack_merged_plain,
+            si.pack_merged, 20, (24 * n + out_bytes, out_bytes))
+
+
+def compare(torch, cases, twin_reps=None):
     """Each kernel against its twin on the same inputs: exactly equal,
-    then CUDA-event medians of both; returns the JSON rows."""
+    then CUDA-event medians, min and max of both (the twin over
+    twin_reps calls, by default half the kernel's and at least 2),
+    beside the bound of the case's (bytes, operations); returns the
+    JSON rows.  No single PyTorch call computes any of these functions,
+    so library_ms is null."""
     rows = []
-    for name, call, twin, kernel, reps in cases:
+    for name, call, twin, kernel, reps, work in cases:
         got, want = call(kernel), call(twin)
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
         if err != 0:
             fail(f"{name}: kernel differs from its twin (max abs err {err})")
-        ms_k = cuda_ms(torch, lambda: call(kernel), reps)
-        ms_t = cuda_ms(torch, lambda: call(twin), max(2, reps // 2))
-        print(f"{name}: equal to twin; kernel {ms_k:.3f} ms, "
-              f"twin {ms_t:.3f} ms", flush=True)
+        ms_k, lo_k, hi_k = cuda_ms(torch, lambda: call(kernel), reps)
+        # the equality check just called the twin: with twin_reps given
+        # that call is its warm-up
+        ms_t, lo_t, hi_t = cuda_ms(torch, lambda: call(twin),
+                                   twin_reps or max(2, reps // 2),
+                                   warm=twin_reps is None)
+        bound_ms, bound_by = bound(work)
+        print(f"{name}: equal to twin; kernel {ms_k:.3f} ms "
+              f"[{lo_k:.3f}, {hi_k:.3f}], twin {ms_t:.3f} ms "
+              f"[{lo_t:.3f}, {hi_t:.3f}]; bound {bound_ms:.4f} ms "
+              f"({bound_by}: {work[0]} bytes, {work[1]} operations)",
+              flush=True)
         rows.append(dict(name=name, route="cuda",
                          source=SOURCES[name],
                          replaces=REPLACES[name], launches=None,
-                         max_abs_err=err, ms=ms_k, plain_ms=ms_t))
+                         max_abs_err=err, ms=ms_k, ms_min=lo_k, ms_max=hi_k,
+                         plain_ms=ms_t, plain_ms_min=lo_t, plain_ms_max=hi_t,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None))
     return rows
 
 
@@ -324,9 +493,15 @@ def check_span_kernels(torch, device, scf, cands, bg):
           f"{len(lo)} runs, {int(cnt.sum())} hits, {int(p.numel())} pairs, "
           f"{int(cand[0].numel())} kept, {int(k6(ss.verify_spans)[0].numel())}"
           f" spans; host join {host_s:.2f} s", flush=True)
+    # K5: a store per hit; K6: a compare per aligned probe position.
+    n_cand, n_spans = cand[0].numel(), k6(ss.verify_spans)[0].numel()
     return compare(torch, [
-        ("expand_join", k5, ss._expand_join_plain, ss.expand_join, 10),
-        ("verify_spans", k6, ss._verify_spans_plain, ss.verify_spans, 10),
+        ("expand_join", k5, ss._expand_join_plain, ss.expand_join, 10,
+         (24 * len(lo) + 16 * join_p.numel() + 16 * p.numel(),
+          int(cnt.sum()))),
+        ("verify_spans", k6, ss._verify_spans_plain, ss.verify_spans, 10,
+         (mega_t.numel() + codes_t.numel() + 48 * n_cand + 24 * n_spans,
+          n_cand * codes_t.shape[1])),
     ])
 
 
@@ -410,9 +585,249 @@ class PhaseClock:
         self.t0 = now
 
 
-def design(args):
+def design(args, args_type="basic"):
     from catch_tpu_torch.cli import design as cli
-    return cli.main(cli.init_and_parse_args(args))
+    return cli.main(cli.init_and_parse_args(args, args_type=args_type))
+
+
+def same_bytes(a, b):
+    with open(a, "rb") as x, open(b, "rb") as y:
+        return x.read() == y.read()
+
+
+@contextlib.contextmanager
+def recording(module, name, keep):
+    """module.name wrapped so that keep(args, kwargs, result) sees every
+    call; the function itself still runs (and counts its launches)."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        keep(args, kwargs, out)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def device_busy(path):
+    """(device events, busy seconds, seconds by kind) of a chrome trace:
+    the union of the card's kernel, copy and set intervals."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ivs, by_kind = [], {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            ivs.append((e["ts"], e["ts"] + e["dur"]))
+            by_kind[e["cat"]] = by_kind.get(e["cat"], 0.0) + e["dur"] / 1e6
+    busy, reach = 0.0, float("-inf")
+    for a, b in sorted(ivs):
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    return len(ivs), busy / 1e6, by_kind
+
+
+def run_design_large(torch, si, profiling, n_genomes, name, profile=False):
+    """Phases 10 and 11: design_large through the CLI on cuda, counting
+    launches; the clusters (where a golden exists) and the FASTA must
+    equal their goldens.  With `profile`, the run goes under
+    torch.profiler (CUDA activity) and the card's busy share is printed.
+    Returns the launches and what phase 13 keeps: the arguments of the
+    largest minhash_sig and minhash_caps calls, of the last full greedy
+    wave's minhash_assign call and of the largest cluster's readback
+    (its packed rows), and the clustering's signature matrix."""
+    from catch_tpu_torch.utils import cluster, lsh
+
+    paths, bp = write_flu(n_genomes)
+    out = os.path.join(WORK, f"{name}_design_large.fasta")
+    kept, calls, lock = {}, [], threading.Lock()
+
+    def keeper(what, size):
+        def keep(args, kwargs, res):
+            with lock:
+                if what not in kept or size(args) > size(kept[what]):
+                    kept[what] = args
+        return keep
+
+    def keep_wave(args, kwargs, res):
+        # the last full wave (the final one may be short)
+        if "assign" not in kept or \
+                args[0].shape[0] >= kept["assign"][0].shape[0]:
+            kept["assign"] = args
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) if profile \
+        else contextlib.nullcontext()
+    with recording(cluster, "cluster_with_minhash_signatures",
+                   lambda a, k, r: calls.append(
+                       (len(a[0]), k["cluster_method"], r))), \
+            recording(cluster, "signature_matrix",
+                      lambda a, k, r: kept.__setitem__("sigs", r)), \
+            recording(cluster, "minhash_assign", keep_wave), \
+            recording(cluster, "minhash_caps", keeper(
+                "caps", lambda a: a[0].shape[0] * a[1].shape[0])), \
+            recording(si, "instance_to_host", keeper(
+                "pack", lambda a: a[0]["packed"][0].numel())), \
+            recording(lsh, "minhash_sig", keeper(
+                "sig", lambda a: a[0].shape[0])), prof:
+        pb, wall, launches, peak = counted(
+            torch, si, profiling, lambda: design(
+                paths + ["-o", out, "--device", "cuda"], "large"))
+    (n_seqs, method, clusters), = calls
+    print(f"{name} design_large: {len(pb.final_probes)} probes from "
+          f"{len(pb.candidate_probes)} candidates; {n_seqs} sequences, "
+          f"{bp} bp, {len(clusters)} clusters ({method}) of "
+          f"{len(clusters[-1])}-{len(clusters[0])}; wall {wall:.3f} s; "
+          f"peak allocated device memory {peak / 2**20:.1f} MiB", flush=True)
+    print_phases(profiling, ("cluster", "candidate", "filter", "set_cover",
+                             "scan"))
+    print(f"launches in the {name} design_large: {launches}", flush=True)
+    if profile:
+        trace = os.path.join(WORK, f"{name}_design_large_trace.json")
+        prof.export_chrome_trace(trace)
+        n_ev, busy, by_kind = device_busy(trace)
+        kinds = ", ".join(f"{k} {v:.4f} s" for k, v in sorted(by_kind.items()))
+        print(f"{name} design_large under torch.profiler (CUDA activity): "
+              f"{n_ev} device events; the card busy {busy:.4f} s of the "
+              f"{wall:.3f} s wall, {100 * busy / wall:.4f}% ({kinds})",
+              flush=True)
+    golden = os.path.join(GOLDEN, f"{name}_clusters.tsv.gz")
+    if os.path.exists(golden):
+        if cluster_ranks(clusters, n_seqs) != read_cluster_ranks(golden):
+            fail(f"{name} clusters differ from {golden}")
+        print(f"{name} clusters equal to golden", flush=True)
+    if not same_bytes(out, os.path.join(GOLDEN,
+                                        f"{name}_design_large.fasta")):
+        fail(f"{name} design_large output differs from its golden")
+    print(f"{name} design_large FASTA equal to golden", flush=True)
+    require_launched(launches, DESIGN_KERNELS + [
+        "minhash_assign", "minhash_caps", "minhash_sig"],
+        f"the {name} design_large")
+    return launches, kept
+
+
+def cluster_scale(torch, si, profiling, device):
+    """Phase 12: the clustering step of design_large's defaults on the
+    51 Mbp scale corpus, as ProbeDesigner._cluster_genomes runs it, with
+    fragments of 50,000 nt ('choose' gives 'simple') and of 10,000 nt
+    ('hierarchical'); both must equal their goldens.  Returns per kernel
+    its launches and the signature matrix it got."""
+    from catch_tpu_torch.designer import ProbeDesigner
+    from catch_tpu_torch.genome import Genome
+    from catch_tpu_torch.utils import cluster
+
+    t0 = time.time()
+    genomes = [Genome.from_one_seq(x) for x in scale_seqs()]
+    print(f"scale corpus: {len(genomes)} genomes, "
+          f"{sum(g.size() for g in genomes)} bp ({time.time() - t0:.1f} s "
+          "to make)", flush=True)
+    out = {}
+    for frag, method, name, kernel in (
+            (50000, "simple", "scale51m_clusters_simple", "minhash_codes"),
+            (10000, "hierarchical",
+             "scale51m_frag10k_clusters_hierarchical", "minhash_dists")):
+        pb = ProbeDesigner([genomes], [], probe_length=100, probe_stride=50,
+                           cluster_threshold=0.15, cluster_method="choose",
+                           cluster_fragment_length=frag, device=device)
+        calls, sigs = [], []
+        with recording(cluster, "cluster_with_minhash_signatures",
+                       lambda a, k, r: calls.append(
+                           (len(a[0]), k["cluster_method"], r))), \
+                recording(cluster, "signature_matrix",
+                          lambda a, k, r: sigs.append(r)):
+            _, wall, launches, peak = counted(torch, si, profiling,
+                                              pb._cluster_genomes)
+        (n, got, clusters), = calls
+        if got != method:
+            fail(f"fragments of {frag}: 'choose' gave {got}, not {method}")
+        if cluster_ranks(clusters, n) != read_cluster_ranks(
+                os.path.join(GOLDEN, f"{name}.tsv.gz")):
+            fail(f"scale corpus clusters ({method}) differ from {name}")
+        print(f"scale corpus, fragments of {frag}: {n} sequences, "
+              f"{len(clusters)} clusters ({method}), equal to golden; wall "
+              f"{wall:.3f} s; peak allocated device memory "
+              f"{peak / 2**20:.1f} MiB; launches {launches}", flush=True)
+        print_phases(profiling, ("cluster",))
+        require_launched(launches, [kernel], f"the {method} clustering")
+        out[kernel] = (launches[kernel], sigs[-1])
+    return out
+
+
+def check_minhash_kernels(torch, si, kept, frag_sigs, flu_sigs):
+    """Phase 13: minhash_caps' four entry points and minhash_sig against
+    their twins at the shapes phases 11 and 12 gave them, and
+    pack_merged at flu10k's largest cluster.  Returns the JSON rows of
+    the MinHash kernels (the all-pairs entries at phase 12's fragment
+    shapes)."""
+    from catch_tpu_torch.ops import minhash as mh
+    from catch_tpu_torch.utils import cluster
+
+    codes, ab = kept["sig"]
+    (U, n), H = codes.shape, ab.shape[0]
+    wave, reps, n_reps, cap_thr = kept["assign"]
+    (Q, N), R = wave.shape, reps.shape[0]
+    blk, blk_r = kept["caps"]
+    C, C_r = blk.shape[0], blk_r.shape[0]
+    print(f"minhash_sig shapes: the largest near-duplicate group, U={U} "
+          f"unique candidate probes, n={n} k-mers, H={H} hash functions; "
+          f"greedy wave: Q={Q} queries, R={R} representatives, N={N}; "
+          f"largest minhash_caps call: {C} x {C_r} leftovers of a wave",
+          flush=True)
+
+    def pairs(q, r, out_bytes):
+        # bytes: both signature blocks and the output; operations: four
+        # (two compares, two adds) per (pair, column) of the walk
+        return 4 * (q + r) * N + out_bytes * q * r, 4 * q * r * N
+
+    rows = compare(torch, [
+        ("minhash_sig", lambda f: (f(codes, ab),), mh._minhash_sig_plain,
+         mh.minhash_sig, 10, (4 * U * n + 8 * H + 4 * U * H, 4 * U * n * H)),
+        ("minhash_assign", lambda f: f(wave, reps, n_reps, cap_thr),
+         mh._minhash_assign_plain, mh.minhash_assign, 10,
+         (4 * (Q + R) * N + 9 * Q, 4 * Q * R * N)),
+        ("minhash_caps", lambda f: (f(blk, blk_r),), mh._minhash_caps_plain,
+         mh.minhash_caps, 10, pairs(C, C_r, 1)),
+    ])
+    # the rows pack_merged got, decoded from what it gave; packing them
+    # again must give the same bytes
+    dev = kept["pack"][0]
+    packed, b_pos = dev["packed"], dev["b_pos"]
+    merged = tuple(torch.from_numpy(x).to(wave.device) for x in
+                   si.unpack_merged(*(x.cpu().numpy() for x in packed),
+                                    b_pos))
+    if max_abs_err(torch, si.pack_merged(*merged, b_pos), packed):
+        fail("pack_merged of the decoded flu10k rows differs from the run's")
+    compare(torch, [pack_case(si, merged, b_pos,
+                              "flu10k's largest cluster")])
+    cap_t = cluster._min_cap(N, cluster._jaccard_dist_from_mash_dist(0.15,
+                                                                     12))
+    cap_e = cluster._min_cap(N, cluster._jaccard_dist_from_mash_dist(0.02,
+                                                                     12))
+    for sigs, what in ((frag_sigs, "phase 12's fragments"),
+                       (flu_sigs, "the first flu10k sequences")):
+        m = sigs.shape[0]
+        print(f"all-pairs shapes: {m} signatures of {what}, N={N}",
+              flush=True)
+        # the twin takes seconds here: one timed call
+        got = compare(torch, [
+            ("minhash_dists", lambda f, x=sigs: (f(x, x),),
+             mh._minhash_dists_plain, mh.minhash_dists, 5, pairs(m, m, 4)),
+            ("minhash_codes", lambda f, x=sigs: (f(x, x, cap_t, cap_e),),
+             mh._minhash_codes_plain, mh.minhash_codes, 5, pairs(m, m, 1)),
+        ], twin_reps=1)
+        print(f"row shapes: one of the {m} signatures against all",
+              flush=True)
+        compare(torch, [("minhash_dists", lambda f, x=sigs: (
+            f(x[m // 2:m // 2 + 1], x),), mh._minhash_dists_plain,
+            mh.minhash_dists, 20, pairs(1, m, 4))])
+        if sigs is frag_sigs:
+            rows += got
+    return rows
 
 
 def main():
@@ -558,6 +973,32 @@ def main():
                      "the analysis")
     clock.done(9)
     rows += span_rows
+
+    # Importing the clustering registers the MinHash kernels.
+    from catch_tpu_torch.utils import cluster  # noqa: F401
+
+    # Phase 10: design_large on flu2000.
+    run_design_large(torch, si, profiling, 2000, "flu2000")
+    clock.done(10)
+
+    # Phase 11: design_large on flu10k, keeping kernel inputs.
+    launches, kept = run_design_large(torch, si, profiling, 10000, "flu10k",
+                                      profile=True)
+    clock.done(11)
+
+    # Phase 12: the all-pairs methods on the 51 Mbp scale corpus.
+    scale = cluster_scale(torch, si, profiling, device)
+    clock.done(12)
+
+    # Phase 13: the MinHash kernels against their twins.
+    mh_rows = check_minhash_kernels(torch, si, kept,
+                                    scale["minhash_dists"][1],
+                                    kept["sigs"][:8192])
+    for r in mh_rows:
+        r["launches"] = (scale[r["name"]][0] if r["name"] in scale
+                         else launches[r["name"]])
+    rows += mh_rows
+    clock.done(13)
 
     print(json.dumps({"kernels": rows}))
     print(card)

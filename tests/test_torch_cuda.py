@@ -142,6 +142,33 @@ def test_empty_inputs(cuda):
     assert p.numel() == a.numel() == 0
 
 
+@pytest.mark.parametrize("b_pos,n", [(2, 1), (2, 5000), (3, 70000),
+                                     (4, 1 << 20)])
+def test_pack_merged_equals_twin(cuda, b_pos, n):
+    """Packed bytes and escapes, with key jumps and lengths past 16 bits
+    and a start that fills every byte; the host decoder gives the rows
+    back."""
+    rng = np.random.default_rng(n)
+    dk = rng.integers(0, 4, size=n)
+    dk[::1777] = 0x12345
+    k = np.cumsum(dk)
+    top = min(1 << (8 * b_pos), 1 << 40)
+    s = rng.integers(0, top, size=n)
+    s[-1] = top - 1
+    e = s + rng.integers(0, 3000, size=n)
+    e[::2311] += 0x10000
+    rows = [torch.from_numpy(x).to(cuda) for x in (k, s, e)]
+    got = si.pack_merged(*rows, b_pos)
+    _assert_equal(got, si._pack_merged_plain(*rows, b_pos))
+    assert got[1].numel() >= 1
+    for g, w in zip(si.unpack_merged(*(x.cpu().numpy() for x in got),
+                                     b_pos), (k, s, e)):
+        assert np.array_equal(g, w)
+    empty = torch.empty(0, dtype=torch.int64, device=cuda)
+    assert all(x.numel() == 0 for x in si.pack_merged(empty, empty, empty,
+                                                       b_pos))
+
+
 def test_design_on_cuda_equals_cpu(cuda):
     """The whole slice on the card gives the CPU twins' probe set."""
     from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
@@ -263,3 +290,76 @@ def test_identify_design_on_cuda_equals_cpu(cuda):
         d.design()
         out[dev] = [p.seq_str for p in d.final_probes]
     assert out["cuda"] == out["cpu"] and out["cpu"]
+
+
+def _signatures(seed, n, N, hi):
+    """n ascending int32 signature rows of width N drawn from [0, hi): a
+    small hi puts duplicates inside rows and ties between pairs."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.sort(rng.integers(0, hi, size=(n, N)),
+                                    axis=1).astype(np.int32))
+
+
+@pytest.mark.parametrize("N,hi", [(1, 3), (40, 60), (100, 150),
+                                  (100, 2**31 - 1), (300, 400),
+                                  (1000, 1500)],
+                         ids=["N1", "N40", "N100", "N100_wide", "N300",
+                              "N1000_smem_opt_in"])
+def test_minhash_caps_equal_twins(cuda, N, hi):
+    from catch_tpu_torch.ops import minhash as mh
+
+    qs_c, rs_c = _signatures(1, 37, N, hi), _signatures(2, 29, N, hi)
+    qs, rs = qs_c.to(cuda), rs_c.to(cuda)
+    thr, early = max(1, N // 3), max(1, N // 2)
+    for kernel, twin, args in (
+            (mh.minhash_dists, mh._minhash_dists_plain, ()),
+            (mh.minhash_codes, mh._minhash_codes_plain, (thr, early)),
+            (mh.minhash_caps, mh._minhash_caps_plain, ())):
+        got = kernel(qs, rs, *args)
+        torch.cuda.synchronize()
+        want = twin(qs, rs, *args)
+        assert got.dtype == want.dtype
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        assert torch.equal(got.cpu(), twin(qs_c, rs_c, *args))
+    for n_reps in (0, 1, 17, 29):
+        got = mh.minhash_assign(qs, rs, n_reps, thr)
+        torch.cuda.synchronize()
+        _assert_equal(got, mh._minhash_assign_plain(qs, rs, n_reps, thr))
+    # a query against copies of itself: every representative ties
+    same = qs[:1].repeat(20, 1)
+    best, ok = mh.minhash_assign(qs[:5], same, 20, thr)
+    _assert_equal((best, ok), mh._minhash_assign_plain(qs[:5], same, 20,
+                                                       thr))
+
+
+def test_minhash_caps_raise_on_unsorted_rows(cuda):
+    from catch_tpu_torch.ops import minhash as mh
+
+    sigs = _signatures(3, 8, 40, 1000).to(cuda)
+    bad = sigs.clone()
+    bad[5] = torch.flip(bad[5], [0])
+    for fn, args in ((mh.minhash_dists, ()), (mh.minhash_codes, (3, 5)),
+                     (mh.minhash_caps, ()), (mh.minhash_assign, (8, 3))):
+        with pytest.raises(ValueError, match="not ascending"):
+            fn(sigs, bad, *args)
+        with pytest.raises(ValueError, match="not ascending"):
+            fn(bad, sigs, *args)
+
+
+def test_minhash_sig_equals_twin(cuda):
+    from catch_tpu_torch.ops import minhash as mh
+
+    rng = np.random.default_rng(4)
+    p = mh.MERSENNE_P
+    codes = np.concatenate([rng.integers(0, p, size=(700, 91)),
+                            rng.integers(p - 1000, p, size=(300, 91))])
+    ab = np.stack([np.concatenate([rng.integers(1, p + 1, size=60),
+                                   rng.integers(p - 100, p + 1, size=15)]),
+                   rng.integers(0, p + 1, size=75)], 1)
+    codes = torch.from_numpy(codes.astype(np.int32))
+    ab = torch.from_numpy(ab.astype(np.int32))
+    got = mh.minhash_sig(codes.to(cuda), ab.to(cuda))
+    torch.cuda.synchronize()
+    want = mh._minhash_sig_plain(codes.to(cuda), ab.to(cuda))
+    _assert_equal((got,), (want,))
+    assert torch.equal(got.cpu(), mh._minhash_sig_plain(codes, ab))

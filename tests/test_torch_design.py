@@ -18,7 +18,6 @@ from catch_tpu.cli import design as jdesign
 from catch_tpu_torch import _build
 from catch_tpu_torch.analysis import Analyzer
 from catch_tpu_torch.cli import design as tdesign
-from catch_tpu_torch.designer import ProbeDesigner
 from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
 from catch_tpu_torch.ops import scan_instance as si
@@ -135,8 +134,8 @@ def test_port_runs_without_jax(tmp_path, block):
 
 @pytest.mark.parametrize("argv", [
     ["--custom-hybridization-fn", "m.py", "f"], ["--add-adapters"],
-    ["--filter-with-lsh-minhash", "0.6"],
-    ["--cluster-and-design-separately", "0.15"],
+    ["--filter-polya", "10", "2"],
+    ["--skip-set-cover"],
     ["--add-reverse-complements"], ["--num-devices", "2"],
 ])
 def test_cli_refuses_unported_flags(argv, capsys):
@@ -169,8 +168,6 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         Analyzer([], 2, 60, [[]], custom_cover_range_fn=("m.py", "f"),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ProbeDesigner([[]], [], 100, 50, cluster_threshold=0.1)
     probes = [Probe("ACGT" * 25)]
     searcher = ProbeSearcher(probes, CoverModel(None, 60))
     assert searcher.K_static is None

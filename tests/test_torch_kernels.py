@@ -368,6 +368,74 @@ def test_segmented_merge_union_group_longer_than_union_cap():
         (int(uk[0]), int(us[0]), int(ue[0])) == (1, 0, 50000)
 
 
+# ----------------------------------------------------------------------
+# K9 pack_merged
+# ----------------------------------------------------------------------
+
+def _merged_rows(seed, n, b_pos, n_key_jumps, n_long):
+    """Merged-like rows sorted by key: small key steps, a few jumps and
+    lengths beyond 16 bits, starts filling b_pos bytes."""
+    rng = np.random.default_rng(seed)
+    dk = rng.integers(0, 4, size=n)
+    dk[rng.choice(n, size=n_key_jumps, replace=False)] = rng.integers(
+        0x10000, 0x200000, size=n_key_jumps)
+    k = np.cumsum(dk)
+    top = min(1 << (8 * b_pos), 1 << 30)
+    s = rng.integers(0, top, size=n)
+    s[0] = top - 1            # a start that uses every byte
+    ln = rng.integers(0, 3000, size=n)
+    ln[rng.choice(n, size=n_long, replace=False)] = rng.integers(
+        0x10000, 0x20000, size=n_long)
+    ln[1] = 0xFFFF            # the largest length that does not escape
+    return k, s, s + ln
+
+
+@pytest.mark.parametrize("b_pos,n_key_jumps,n_long", [
+    (2, 0, 0), (2, 3, 2), (3, 5, 0), (4, 2, 7)])
+def test_pack_merged_matches_pack_merged_jit(b_pos, n_key_jumps, n_long):
+    """The packed bytes and the escape lists equal _pack_merged_jit's,
+    and both decoders give the rows back."""
+    n = 3000
+    k, s, e = _merged_rows(b_pos + n_long, n, b_pos, n_key_jumps, n_long)
+    N = sj._next_pow2(n)
+    pad = N - n + 5
+
+    def j32(x):
+        return jnp.asarray(np.concatenate([x, np.zeros(pad, np.int64)])
+                           .astype(np.int32))
+
+    packed_j, idx_j, key_j, end_j, n_esc = sj._pack_merged_jit(
+        j32(k), j32(s), j32(e), jnp.int32(n), N=N, b_pos=b_pos,
+        ECAP=sj._ESC_CAP)
+    n_esc = int(n_esc)
+    got = si.pack_merged(*(torch.from_numpy(x) for x in (k, s, e)), b_pos)
+    assert got[0].dtype == torch.uint8
+    assert np.array_equal(got[0].numpy(),
+                          np.asarray(packed_j)[:n * (4 + b_pos)])
+    assert got[1].numel() == n_esc >= min(1, n_key_jumps + n_long)
+    for g, w in zip(got[1:], (idx_j, key_j, end_j)):
+        assert np.array_equal(g.numpy(), np.asarray(w)[:n_esc])
+
+    rows = si.unpack_merged(*(x.numpy() for x in got), b_pos)
+    want = sj._unpack_merged(dict(n_merged=n, packed=(
+        packed_j, idx_j, key_j, end_j, n_esc, N, b_pos)))
+    for g, w, x in zip(rows, want, (k, s, e)):
+        assert g.dtype == np.int64
+        assert np.array_equal(g, w) and np.array_equal(g, x)
+
+
+def test_pack_merged_empty_and_bad_width():
+    e = torch.empty(0, dtype=torch.int64)
+    out = si.pack_merged(e, e, e, 2)
+    assert all(x.numel() == 0 for x in out)
+    assert all(x.size == 0 for x in si.unpack_merged(
+        *(x.numpy() for x in out), 2))
+    with pytest.raises(ValueError):
+        si.pack_merged(e, e, e, 5)
+    assert [si.pack_width(m) for m in (0, 0xFFFF, 0x10000, 0xFFFFFF,
+                                       0x1000000)] == [2, 2, 3, 3, 4]
+
+
 def test_wrappers_reject_mixed_devices_and_dtypes():
     t = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(TypeError):
