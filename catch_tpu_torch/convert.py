@@ -5,6 +5,8 @@ probe set, its seed parameters and the span scan's minimizer join table;
 `searcher_from_reference` builds the port's ProbeSearcher from those
 fields as catch_tpu's ProbeSearcher holds them (numpy arrays and ints),
 so both packages scan and join with exactly the same state.  The
+set-cover solvers read an instance: `instance_from_reference` copies
+one from catch_tpu's fields into the port's SetCoverInstance.  The
 clustering and the near-duplicate filter read MinHash state instead:
 `signature_matrix` turns either package's signatures into the tensor
 the clustering holds, and `minhash_params` draws the near-duplicate
@@ -18,15 +20,27 @@ import torch
 from catch_tpu_torch.ops import encode
 from catch_tpu_torch.ops.cover import CoverModel, ProbeSearcher
 from catch_tpu_torch.ops.minhash import MERSENNE_P
+from catch_tpu_torch.ops.set_cover import SetCoverInstance
 
 __all__ = ["REFERENCE_FIELDS", "reference_arrays", "searcher_from_reference",
-           "signature_matrix", "minhash_params"]
+           "INSTANCE_FIELDS", "instance_from_reference", "signature_matrix",
+           "minhash_params"]
 
 # The fields of catch_tpu.ops.cover.ProbeSearcher that the scan reads.
 REFERENCE_FIELDS = ("probe_codes", "probe_lens", "alphabet_lut", "k_seed",
                     "seed_mode", "Lmax", "lcf_static", "K_static", "fast_ok",
                     "island_of_exact_match", "join_h", "join_p", "join_pos",
                     "join_params")
+
+# The fields of a set-cover instance (catch_tpu.ops.set_cover.
+# SetCoverInstance); the others are ints.
+INSTANCE_FIELDS = ("n_sets", "n_universes", "u_size", "can_uncover",
+                   "ivl_start", "ivl_end", "pair_of_ivl", "set_of_pair",
+                   "univ_of_pair", "cost", "rank_idx", "n_rank_vals",
+                   "u_len", "pos_univ_offsets")
+_INSTANCE_ARRAYS = ("u_size", "can_uncover", "ivl_start", "ivl_end",
+                    "pair_of_ivl", "set_of_pair", "univ_of_pair", "cost",
+                    "rank_idx", "pos_univ_offsets")
 
 
 def reference_arrays(searcher):
@@ -85,6 +99,19 @@ def searcher_from_reference(arrays, device=None):
     s._join_pos = np.asarray(arrays["join_pos"], dtype=np.int64)
     s._join_kw = tuple(arrays["join_params"])
     return s
+
+
+def instance_from_reference(inst):
+    """The port's SetCoverInstance with the fields of a set-cover
+    instance of either package (numpy arrays and ints, as
+    catch_tpu.ops.set_cover.build_instance makes them), copied, so both
+    packages solve the same instance."""
+    missing = [f for f in INSTANCE_FIELDS if not hasattr(inst, f)]
+    if missing:
+        raise KeyError(f"set-cover instance lacks fields {missing}")
+    return SetCoverInstance(**{
+        f: (np.array(getattr(inst, f)) if f in _INSTANCE_ARRAYS
+            else int(getattr(inst, f))) for f in INSTANCE_FIELDS})
 
 
 def signature_matrix(signatures, device):

@@ -1,0 +1,238 @@
+// Shared pieces of the set-cover kernels (init_covered.cu, greedy_v2.cu,
+// greedy_v1.cu, see catch_tpu_torch/ops/set_cover.py):
+//   - an int32 prefix scan over the position axis in three passes (tile
+//     sums, one block scanning the tile sums, tile writes), with the
+//     item loaded and the inclusive prefix stored through functors;
+//   - a greedy step's per-set candidate: eligibility and the float32
+//     ratio, and the block minimum of (ratio, set id);
+//   - the one-block decide step that ends every greedy step.
+// Everything is in an anonymous namespace: each source that includes
+// this header gets its own copy of the kernels.
+#pragma once
+
+#include <climits>
+#include <cmath>
+
+#include "common.cuh"
+
+#define CT_SCAN_THREADS 256
+#define CT_SCAN_ITEMS 16
+#define CT_SCAN_TILE (CT_SCAN_THREADS * CT_SCAN_ITEMS)  // 4096 items a tile
+#define CT_FULL_MASK 0xFFFFFFFFu
+#define CT_DECIDE_THREADS 1024
+
+namespace {
+
+// Exclusive scan of one int per thread over the block (blockDim.x a
+// multiple of 32); *total gets the block's sum.  Every thread must call.
+__device__ __forceinline__ int ct_block_excl_scan(int x, int* total) {
+    __shared__ int warp_sums[32];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    int v = x;
+    for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(CT_FULL_MASK, v, d);
+        if (lane >= d) v += y;
+    }
+    if (lane == 31) warp_sums[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        int w = lane < nwarps ? warp_sums[lane] : 0;
+        for (int d = 1; d < 32; d <<= 1) {
+            const int y = __shfl_up_sync(CT_FULL_MASK, w, d);
+            if (lane >= d) w += y;
+        }
+        warp_sums[lane] = w;
+    }
+    __syncthreads();
+    const int before = warp > 0 ? warp_sums[warp - 1] : 0;
+    *total = warp_sums[nwarps - 1];
+    __syncthreads();   // warp_sums is reused by the next call
+    return before + v - x;
+}
+
+// Pass 1: the sum of each tile of CT_SCAN_TILE items.
+template <class Load>
+__global__ void ct_scan_tile_sums(Load load, int64_t n,
+                                  int* __restrict__ sums) {
+    const int64_t base = (int64_t)blockIdx.x * CT_SCAN_TILE
+                         + (int64_t)threadIdx.x * CT_SCAN_ITEMS;
+    int s = 0;
+    for (int j = 0; j < CT_SCAN_ITEMS; ++j)
+        if (base + j < n) s += load(base + j);
+    int total;
+    ct_block_excl_scan(s, &total);
+    if (threadIdx.x == 0) sums[blockIdx.x] = total;
+}
+
+// Pass 2: one block turns the tile sums into exclusive tile offsets, in
+// place.
+__global__ void ct_scan_carry(int* __restrict__ sums, int64_t nt) {
+    int run = 0;
+    for (int64_t c0 = 0; c0 < nt; c0 += blockDim.x) {
+        const int64_t t = c0 + threadIdx.x;
+        const int x = t < nt ? sums[t] : 0;
+        int total;
+        const int ex = ct_block_excl_scan(x, &total);
+        if (t < nt) sums[t] = run + ex;
+        run += total;
+    }
+}
+
+// Pass 3: each item's inclusive prefix, handed to store(i, prefix).
+template <class Load, class Store>
+__global__ void ct_scan_write(Load load, Store store, int64_t n,
+                              const int* __restrict__ offs) {
+    const int64_t base = (int64_t)blockIdx.x * CT_SCAN_TILE
+                         + (int64_t)threadIdx.x * CT_SCAN_ITEMS;
+    int v[CT_SCAN_ITEMS];
+    int s = 0;
+    for (int j = 0; j < CT_SCAN_ITEMS; ++j) {
+        v[j] = base + j < n ? load(base + j) : 0;
+        s += v[j];
+    }
+    int total;
+    int run = offs[blockIdx.x] + ct_block_excl_scan(s, &total);
+    for (int j = 0; j < CT_SCAN_ITEMS; ++j) {
+        run += v[j];
+        if (base + j < n) store(base + j, run);
+    }
+}
+
+// Inclusive scan of load(0..n) into store; `tiles` holds
+// ceil(n / CT_SCAN_TILE) ints.
+template <class Load, class Store>
+void ct_scan(Load load, Store store, int64_t n, int* tiles,
+             cudaStream_t st) {
+    if (n <= 0) return;
+    const int64_t nt = (n + CT_SCAN_TILE - 1) / CT_SCAN_TILE;
+    ct_scan_tile_sums<<<(unsigned)nt, CT_SCAN_THREADS, 0, st>>>(load, n,
+                                                                tiles);
+    ct_scan_carry<<<1, 1024, 0, st>>>(tiles, nt);
+    ct_scan_write<<<(unsigned)nt, CT_SCAN_THREADS, 0, st>>>(load, store, n,
+                                                            tiles);
+}
+
+// The uncovered indicator, and prefix[i + 1] = uncovered in [0, i].
+struct UncoveredLoad {
+    const bool* covered;
+    __device__ int operator()(int64_t i) const { return covered[i] ? 0 : 1; }
+};
+
+struct PrefixStore {
+    int* prefix;
+    __device__ void operator()(int64_t i, int v) const { prefix[i + 1] = v; }
+};
+
+// (ratio, set id) a is better than b: a smaller ratio, or the same ratio
+// and a lower id (the first argmin, as jnp.argmin and torch.argmin).
+__device__ __forceinline__ bool ct_better(float ra, int ia, float rb,
+                                          int ib) {
+    return ra < rb || (ra == rb && ia < ib);
+}
+
+// Block minimum of (r, i); every thread gets it back.
+__device__ __forceinline__ void ct_block_min(float& r, int& i) {
+    __shared__ float sr[32];
+    __shared__ int si[32];
+    for (int d = 16; d >= 1; d >>= 1) {
+        const float r2 = __shfl_down_sync(CT_FULL_MASK, r, d);
+        const int i2 = __shfl_down_sync(CT_FULL_MASK, i, d);
+        if (ct_better(r2, i2, r, i)) { r = r2; i = i2; }
+    }
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    if (lane == 0) { sr[warp] = r; si[warp] = i; }
+    __syncthreads();
+    if (warp == 0) {
+        r = lane < nwarps ? sr[lane] : INFINITY;
+        i = lane < nwarps ? si[lane] : INT_MAX;
+        for (int d = 16; d >= 1; d >>= 1) {
+            const float r2 = __shfl_down_sync(CT_FULL_MASK, r, d);
+            const int i2 = __shfl_down_sync(CT_FULL_MASK, i, d);
+            if (ct_better(r2, i2, r, i)) { r = r2; i = i2; }
+        }
+        if (lane == 0) { sr[0] = r; si[0] = i; }
+    }
+    __syncthreads();
+    r = sr[0];
+    i = si[0];
+    __syncthreads();
+}
+
+// Set s with capped score sc: eligible when not in the cover, in the
+// current rank tier and with a positive score; its ratio is
+// cost / float32(score) by IEEE division (never a reciprocal product: the
+// last bit decides ties), +inf when not eligible.  Threads past the last
+// set pass s = -1 and take part in the block minimum with (+inf,
+// INT_MAX).  Thread 0 writes the block's (ratio, id, any eligible).
+__device__ __forceinline__ void ct_set_candidates(
+        int64_t s, int sc, const bool* __restrict__ in_cover,
+        const int* __restrict__ rank_idx, int cur_rank,
+        const float* __restrict__ cost, float* __restrict__ blk_r,
+        int* __restrict__ blk_i, int* __restrict__ blk_any) {
+    float r = INFINITY;
+    int i = INT_MAX;
+    int elig = 0;
+    if (s >= 0) {
+        i = (int)s;
+        elig = !in_cover[s] && rank_idx[s] == cur_rank && sc > 0;
+        if (elig) r = __fdiv_rn(cost[s], __int2float_rn(sc));
+    }
+    const int any = __syncthreads_or(elig);
+    ct_block_min(r, i);
+    if (threadIdx.x == 0) {
+        blk_r[blockIdx.x] = r;
+        blk_i[blockIdx.x] = i;
+        blk_any[blockIdx.x] = any;
+    }
+}
+
+// The decide step (one block of CT_DECIDE_THREADS): the global first
+// argmin over the set blocks, active = any universe still needs
+// positions, then pick, rank advance, stop and the chosen set's
+// in_cover flag, as catch_tpu's _greedy_core/_greedy_core_v2.  With no
+// eligible set the chosen id is the first argmin of all +inf, set 0.
+// dec[0..1] = (chosen, pick) for the update kernel; the step's chosen
+// and pick also go to chosens/picks[step] and, for the device-resident
+// solver, order[n_chosen++] (either pointer may be null).
+__global__ void ct_decide_kernel(
+        const float* __restrict__ blk_r, const int* __restrict__ blk_i,
+        const int* __restrict__ blk_any, int64_t nb,
+        const int* __restrict__ len_u, const int* __restrict__ can_uncover,
+        int64_t nU, int n_rank_vals, int* cur_rank, bool* stop,
+        bool* in_cover, int* dec, int* chosens, bool* picks, int step,
+        int* order, int* n_chosen) {
+    float r = INFINITY;
+    int i = INT_MAX;
+    int any = 0, act = 0;
+    for (int64_t b = threadIdx.x; b < nb; b += blockDim.x) {
+        if (ct_better(blk_r[b], blk_i[b], r, i)) { r = blk_r[b]; i = blk_i[b]; }
+        any |= blk_any[b];
+    }
+    for (int64_t u = threadIdx.x; u < nU; u += blockDim.x)
+        act |= len_u[u] - can_uncover[u] > 0;
+    any = __syncthreads_or(any);
+    act = __syncthreads_or(act);
+    ct_block_min(r, i);
+    if (threadIdx.x != 0) return;
+    const int chosen = nb > 0 ? i : 0;
+    const bool pick = act && any;
+    const bool adv = act && !any;
+    const int cr = *cur_rank;
+    *stop = !act || (adv && cr + 1 >= n_rank_vals);
+    *cur_rank = cr + (adv ? 1 : 0);
+    if (pick) in_cover[chosen] = true;
+    dec[0] = chosen;
+    dec[1] = pick ? 1 : 0;
+    if (chosens) {
+        chosens[step] = chosen;
+        picks[step] = pick;
+    }
+    if (order && pick) {
+        order[*n_chosen] = chosen;
+        *n_chosen += 1;
+    }
+}
+
+}  // namespace

@@ -1,9 +1,13 @@
 """SetCoverFilter: probe selection by multi-universe set cover.
 
 Port of catch_tpu/filters/set_cover_filter.py.  Every group takes the
-device scan of ops/scan_instance on the filter's `device`, reads the
-merged instance back once, and solves it with the lazy greedy solver on
-the host, in rank tiers.  Identification ranks and avoided-genome ranks
+device scan of ops/scan_instance on the filter's `device`, packs the
+merged instance and reads it back once, and solves it with the lazy
+greedy solver on the host, in rank tiers.  With CATCH_TPU_SOLVE=device in the environment,
+as in catch_tpu, the instance stays on the device instead: stage E
+(scan_instance.ensure_assembled) and the greedy steps
+(set_cover.solve_boundary_instance) run there, and only the picks come
+back; a failure raises.  Identification ranks and avoided-genome ranks
 come from the tolerant model's unmerged span scan (ops/scan_sparse) on
 the same device, merged there per (probe, strand).  There is no
 size-based route to a host scan and no fallback: a failing scan raises.
@@ -12,6 +16,7 @@ Not ported yet: custom cover functions (ROADMAP queue 1, item 12).
 """
 
 import logging
+import os
 import time
 
 import numpy as np
@@ -243,12 +248,23 @@ class SetCoverFilter(BaseFilter):
             searcher, sequences, seq_univ, seq_off, seq_len,
             len(target_genomes), self.cover_extension, universe_p, pid_of,
             self.device)
-        inst = scan_instance.instance_to_host(
-            dev, perm, pid_of, len(possible_probes), rank_idx,
-            len(rank_vals), costs)
+        on_device = os.environ.get("CATCH_TPU_SOLVE") == "device"
+        if on_device:
+            # Stage E and the greedy steps on the device; only the picks
+            # come back.
+            scan_instance.ensure_assembled(dev, perm, pid_of, rank_idx,
+                                           len(rank_vals), costs)
+        else:
+            inst = scan_instance.instance_to_host(
+                dev, perm, pid_of, len(possible_probes), rank_idx,
+                len(rank_vals), costs)
         stats["scan_seconds"] += time.time() - t0
         t0 = time.time()
-        chosen = set_cover.solve_instance(inst)
+        if on_device:
+            order = set_cover.solve_boundary_instance(dev, len(perm))
+            chosen = pid_of[perm[order]]
+        else:
+            chosen = set_cover.solve_instance(inst)
         stats["solve_seconds"] += time.time() - t0
         profiling.add_phase("set_cover:solve", time.time() - t0)
         stats["set_cover_picks"] += len(chosen)

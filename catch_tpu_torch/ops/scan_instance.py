@@ -18,12 +18,19 @@ kernels (sources in catch_tpu_torch/csrc/):
   D. Merge: K4 segmented_merge merges overlapping or touching spans per
      (probe, universe) key; the same kernel keyed by universe alone
      gives the per-genome coverage union.
-  P. Readback: K9 pack_merged packs each merged row into 4 + b_pos bytes
-     (key delta, start, length) with an escape list for the rows whose
-     delta or length overflows 16 bits.
+The merged rows stay on the device; then one of two routes:
 
-instance_to_host then reads the packed rows back, decodes them on the
-host (unpack_merged) and builds the exact host SetCoverInstance.
+  P. Readback (the host solver's route, instance_to_host): K9
+     pack_merged packs each merged row into 4 + b_pos bytes (key delta,
+     start, length) with an escape list for the rows whose delta or
+     length overflows 16 bits; the packed rows replace the merged ones on
+     the device, are read back, decoded on the host (unpack_merged) and
+     built into the exact host SetCoverInstance.
+  E. Solver arrays (the device solver's route, ensure_assembled): K10
+     assemble turns the merged rows into global int32 coordinates, pair
+     and set bounds and univ_of_pair, with the per-set maxima, which the
+     device solver (ops/set_cover.solve_boundary_instance) reads on the
+     device.
 
 Seeding guarantee (stride sampling).  Every qualifying cover contains a
 run of >= k_seed exact matches.  With kj <= k_seed and stride
@@ -57,8 +64,9 @@ from catch_tpu_torch.ops import encode
 from catch_tpu_torch.utils import profiling
 
 __all__ = ["scan_to_boundary_instance", "instance_to_host",
-           "rolling_hash", "lookup_expand", "verify_windows",
-           "segmented_merge", "pack_merged", "unpack_merged", "KERNELS"]
+           "ensure_assembled", "rolling_hash", "lookup_expand",
+           "verify_windows", "segmented_merge", "pack_merged",
+           "unpack_merged", "assemble", "KERNELS"]
 
 # 32-bit rolling-hash multiplier (odd; golden ratio) and sentinel, as in
 # catch_tpu/ops/scan_instance.py _MULT/_HMAX.
@@ -621,12 +629,101 @@ def unpack_merged(packed, esc_idx, esc_key, esc_end, b_pos):
     return k, s, e
 
 
+# ----------------------------------------------------------------------
+# K10 assemble (stage E)
+# ----------------------------------------------------------------------
+
+def assemble(key, start, end, offsets, n_sets):
+    """The device solver's boundary-indexed arrays of the merged rows.
+
+    Args:
+        key, start, end: int64 merged rows sorted by key, key = set * nU
+            + universe, coordinates universe-local
+        offsets: int64[nU + 1] global offset of each universe
+        n_sets: number of solver sets S (every set id is below it)
+
+    Returns (ivl_start, ivl_end, pair_bounds, set_bounds, univ_of_pair,
+    max_pairs_per_set, max_ivls_per_set): int32 global coordinates per
+    row, int32[P + 1] row bounds of each pair, int32[S + 1] pair bounds
+    of each set, int32[P] universe of each pair, and the largest pair
+    and interval counts of one set (Python ints, 0 without sets).
+
+    Replaces catch_tpu/ops/scan_instance.py _assemble_jit (:712-751),
+    without its power-of-two padding; the kernels are csrc/assemble.cu
+    (bandwidth bound), the pair numbering and set bounds are
+    torch.cumsum and torch.searchsorted.  Coordinates must fit int32
+    (ensure_assembled checks).
+    """
+    for t, name in ((key, "key"), (start, "start"), (end, "end"),
+                    (offsets, "offsets")):
+        _require(t, torch.int64, name)
+    if _on_cpu(key, start, end, offsets):
+        return _assemble_plain(key, start, end, offsets, n_sets)
+    dev = key.device
+    n = key.numel()
+    nU = offsets.numel() - 1
+    lib = _build.library()
+    stream = _build.stream_of(key)
+    gs = torch.empty(n, dtype=torch.int32, device=dev)
+    ge = torch.empty(n, dtype=torch.int32, device=dev)
+    first = torch.empty(n, dtype=torch.int64, device=dev)
+    _build.check(lib.ct_assemble_rows(
+        _build.ptr(key), _build.ptr(start), _build.ptr(end), n,
+        _build.ptr(offsets), nU, _build.ptr(gs), _build.ptr(ge),
+        _build.ptr(first), stream), "assemble_rows")
+    incl = torch.cumsum(first, 0)
+    n_pairs = int(incl[-1]) if n else 0
+    set_of_pair = torch.empty(n_pairs, dtype=torch.int32, device=dev)
+    univ_of_pair = torch.empty(n_pairs, dtype=torch.int32, device=dev)
+    pair_bounds = torch.zeros(n_pairs + 1, dtype=torch.int32, device=dev)
+    _build.check(lib.ct_assemble_pairs(
+        _build.ptr(key), _build.ptr(first), _build.ptr(incl), n, nU,
+        _build.ptr(set_of_pair), _build.ptr(univ_of_pair),
+        _build.ptr(pair_bounds), stream), "assemble_pairs")
+    set_bounds = torch.searchsorted(
+        set_of_pair, torch.arange(n_sets + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    maxima = torch.zeros(2, dtype=torch.int32, device=dev)
+    _build.check(lib.ct_assemble_maxima(
+        _build.ptr(set_bounds), _build.ptr(pair_bounds), n_sets,
+        _build.ptr(maxima), stream), "assemble_maxima")
+    assemble.launches += 1
+    mp, mi = maxima.tolist()
+    return gs, ge, pair_bounds, set_bounds, univ_of_pair, mp, mi
+
+
+assemble.launches = 0
+
+
+def _assemble_plain(key, start, end, offsets, n_sets):
+    """Plain-PyTorch twin of assemble."""
+    nU = offsets.numel() - 1
+    dev = key.device
+    off = offsets[key % nU]
+    first = torch.ones(key.numel(), dtype=torch.bool, device=dev)
+    first[1:] = key[1:] != key[:-1]
+    rows = torch.nonzero(first).flatten()
+    set_of_pair = (key[rows] // nU).to(torch.int32)
+    pair_bounds = torch.cat([rows, torch.tensor([key.numel()], device=dev)])
+    set_bounds = torch.searchsorted(
+        set_of_pair, torch.arange(n_sets + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    n_pairs = set_bounds[1:] - set_bounds[:-1]
+    n_ivls = pair_bounds[set_bounds[1:]] - pair_bounds[set_bounds[:-1]]
+    return ((start + off).to(torch.int32), (end + off).to(torch.int32),
+            pair_bounds.to(torch.int32), set_bounds,
+            (key[rows] % nU).to(torch.int32),
+            int(n_pairs.max()) if n_sets else 0,
+            int(n_ivls.max()) if n_sets else 0)
+
+
 KERNELS = {
     "rolling_hash": rolling_hash,
     "lookup_expand": lookup_expand,
     "verify_windows": verify_windows,
     "segmented_merge": segmented_merge,
     "pack_merged": pack_merged,
+    "assemble": assemble,
 }
 
 
@@ -669,9 +766,10 @@ def scan_to_boundary_instance(searcher, sequences, seq_univ, chrom_off,
 
     Returns:
         (dev, perm): dev holds the merged (key, start, end) tensors on
-        `device` and the host-side universe sizes, coverage floors and
-        offsets; perm maps solver set ids (probe rows sorted by
-        candidate id) to searcher probe indices.
+        `device`, the packed start field's width and the host-side
+        universe sizes, coverage floors and offsets; perm maps solver set
+        ids (probe rows sorted by candidate id) to searcher probe
+        indices.  instance_to_host or ensure_assembled takes it on.
     """
     model = searcher.model
     if model.custom_fn is not None or searcher.K_static is None:
@@ -792,8 +890,6 @@ def _run_pipeline(searcher, device, st, total, kj, s, K, k_seed, seed_req,
     mk, ms, me = segmented_merge(key, us, ue)
     del key, us, ue
     t0 = _mark(searcher, device, "merge", t0)
-    # The host solver reads the merged instance back packed.
-    packed = pack_merged(mk, ms, me, b_pos)
     uk, us_, ue_ = (x.cpu().numpy()
                     for x in segmented_merge(mk % nU, ms, me))
     u_size = np.zeros(nU, dtype=np.int64)
@@ -805,21 +901,71 @@ def _run_pipeline(searcher, device, st, total, kj, s, K, k_seed, seed_req,
     universe_p = np.asarray(universe_p, dtype=np.float64)
     can_uncover = (u_size - universe_p * u_size).astype(np.int64)
     _mark(searcher, device, "assemble", t0)
-    return dict(packed=packed, b_pos=b_pos, offsets=offsets, nU=nU,
+    return dict(b_pos=b_pos, merged=(mk, ms, me),
+                n_merged=int(mk.numel()), offsets=offsets, nU=nU,
                 u_size_host=u_size, can_uncover_host=can_uncover)
+
+
+def ensure_assembled(dev, perm, pid_of, rank_idx_cand, n_rank_vals,
+                     cost_cand):
+    """Stage E: put the device solver's arrays into `dev`; idempotent.
+
+    Runs K10 assemble on the merged rows and adds, on their device,
+    ivl_start / ivl_end (int32 global coordinates), pair_bounds,
+    set_bounds, univ_of_pair, u_size and can_uncover (int32[nU]), and
+    each solver set's cost (float32) and rank_idx (int32): the
+    candidate values of pid_of[perm], as catch_tpu builds them.  Also
+    max_pairs_per_set and max_ivls_per_set (the true maxima over the
+    sets), n_rank_vals and u_len.  Raises ValueError when the global
+    position axis does not fit int32 (catch_tpu returns None there and
+    takes its host route; the port has no such route).
+    """
+    if "ivl_start" in dev:
+        return dev
+    t0 = time.time()
+    offsets = dev["offsets"]
+    u_len = int(offsets[-1])
+    if u_len >= np.iinfo(np.int32).max:
+        raise ValueError(f"global position axis of {u_len} positions does "
+                         "not fit the solver's int32 coordinates")
+    mk, ms, me = dev["merged"]
+    device = mk.device
+
+    def put(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
+            device)
+
+    sets = np.asarray(pid_of)[perm]
+    gs, ge, pb, sb, uop, mp, mi = assemble(
+        mk, ms, me, put(offsets, np.int64), len(perm))
+    dev.update(
+        ivl_start=gs, ivl_end=ge, pair_bounds=pb, set_bounds=sb,
+        univ_of_pair=uop, u_size=put(dev["u_size_host"], np.int32),
+        can_uncover=put(dev["can_uncover_host"], np.int32),
+        cost=put(np.asarray(cost_cand, dtype=np.float32)[sets], np.float32),
+        rank_idx=put(np.asarray(rank_idx_cand, dtype=np.int32)[sets],
+                     np.int32),
+        n_rank_vals=int(n_rank_vals), u_len=u_len, max_pairs_per_set=mp,
+        max_ivls_per_set=mi)
+    profiling.add_phase("scan:stage_e", time.time() - t0)
+    return dev
 
 
 def instance_to_host(dev, perm, pid_of, n_candidates, rank_idx_cand,
                      n_rank_vals, cost_cand):
-    """Read the packed merged intervals back, decode them, and build the
-    exact host SetCoverInstance that catch_tpu builds.
+    """Pack the merged intervals (K9), read them back, decode them, and
+    build the exact host SetCoverInstance that catch_tpu builds.
 
-    Set ids are candidate ids (solver order is candidate-id ascending,
-    so the relabeling keeps intervals sorted by pair and pairs by set).
+    The packed rows take the merged rows' place in `dev`, so the card
+    holds only the packed ones while the host solves.  Set ids are
+    candidate ids (solver order is candidate-id ascending, so the
+    relabeling keeps intervals sorted by pair and pairs by set).
     """
     from catch_tpu_torch.ops import set_cover as sc
 
     t0 = time.time()
+    if "packed" not in dev:
+        dev["packed"] = pack_merged(*dev.pop("merged"), dev["b_pos"])
     nU = dev["nU"]
     offsets = dev["offsets"]
     k, s, e = unpack_merged(*(x.cpu().numpy() for x in dev["packed"]),

@@ -1,16 +1,63 @@
-# Copied from catch_tpu/ops/set_cover.py (SetCoverInstance, _solve_host_lazy, _interval_difference, _merge_sorted_intervals).
-"""Greedy weighted partial multi-universe set cover, on the host.
+# Copied from catch_tpu/ops/set_cover.py (SetCoverInstance, _solve_host_lazy, _interval_difference, _merge_sorted_intervals, _merge_by_group, build_instance_from_cover_arrays).
+"""Greedy weighted partial multi-universe set cover, on the host and on
+the device.
 
-The instance comes from the device scan (ops/scan_instance.instance_to_
-host); the greedy loop runs here in numpy.  Greedy set cover is
-sequential, one pick per iteration, and the lazy solver touches only
-the few sets whose stale ratios reach the front of its heap, so the
-loop stays on the host while the device does the scan.
+Two routes take an instance to its pick order.  The default reads the
+merged instance back (ops/scan_instance.instance_to_host) and runs the
+lazy greedy solver here in numpy; it touches only the few sets whose
+stale ratios reach the front of its heap.  The device route
+(CATCH_TPU_SOLVE=device in the set-cover filter) keeps the instance on
+its device, where stage E (scan_instance.ensure_assembled) has built
+boundary-indexed arrays, and runs every greedy step there; only the
+picks come back.  Its kernels (sources in catch_tpu_torch/csrc/):
+
+  K11 init_covered  covered0, the complement of the union of all
+                    intervals (catch_tpu _init_covered_jit)
+  K12 greedy_v2     greedy steps over boundary-indexed arrays, for
+                    solve_boundary_instance (_steps_jit_v2)
+  K13 greedy_v1     greedy steps with segment sums over a host
+                    SetCoverInstance: solve_instance(force_device=True)
+                    and the device-resident loop _solve_device
+                    (_steps_jit, _solve_jit_padded)
+
+A step's state is a dict: covered (bool[U]), len_u (int32[nU],
+uncovered positions per universe), in_cover (bool[S]), cur_rank and
+stop (0-d int32 and bool), and for the device-resident loop order
+(int32[S]) and n_chosen (0-d int32).  The step functions update it in
+place (catch_tpu donates the same buffers).  Every route gives the same
+pick order: the first argmin of float32 cost / score in the current
+rank tier, ties to the lowest set id.
+
+Left out from catch_tpu: the power-of-two padding (dummy sets, pairs,
+universes and empty intervals), and the fallback from a failed device
+solve to the host; a device solve that fails, or that reaches its
+dispatch bound without stopping, raises.  Every kernel wrapper runs its
+plain-PyTorch twin (same module, name suffixed _plain) for CPU tensors
+and its kernel for CUDA tensors, and counts its launches in an integer
+attribute `launches`; the wrappers are registered in
+scan_instance.KERNELS.
 """
 
 import numpy as np
+import torch
 
-__all__ = ["SetCoverInstance", "solve_instance"]
+from catch_tpu_torch import _build
+from catch_tpu_torch.device import resolve_device
+from catch_tpu_torch.ops import scan_instance as si
+
+__all__ = ["SetCoverInstance", "solve_instance", "solve_boundary_instance",
+           "assembled_instance", "build_instance_from_cover_arrays",
+           "init_covered", "greedy_steps_v2", "greedy_steps_v1",
+           "initial_state"]
+
+# Greedy steps a device dispatch runs between two readbacks of its
+# picks (catch_tpu's _STEPS_PER_DISPATCH).  Steps after the stop change
+# nothing but cur_rank.
+_STEPS_PER_DISPATCH = 64
+
+# Positions a tile of the kernels' prefix scan holds (CT_SCAN_TILE in
+# csrc/greedy.cuh); sizes its tile buffer.
+_SCAN_TILE = 4096
 
 
 class SetCoverInstance:
@@ -33,7 +80,6 @@ class SetCoverInstance:
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
-
 
 
 def _solve_host_lazy(inst):
@@ -236,7 +282,589 @@ def _merge_sorted_intervals(a_s, a_e, b_s, b_e):
     m_e = np.maximum.reduceat(e, idx)
     return m_s, m_e
 
-def solve_instance(inst):
+
+def _merge_by_group(group_key, starts, ends):
+    """Merge overlapping/touching intervals within each group.
+
+    Args:
+        group_key: int64[M] group id per interval (need not be sorted)
+        starts, ends: int64[M]
+
+    Returns:
+        (group_key, starts, ends) of the merged intervals, sorted by
+        (group, start).
+    """
+    if len(starts) == 0:
+        return group_key, starts, ends
+    # Sort by (group, start): a single composite-key argsort is ~5x
+    # faster than np.lexsort at millions of intervals.  End order
+    # within equal (group, start) is irrelevant to the running-max
+    # merge below.  Fall back to lexsort if the key would overflow.
+    s_min = int(starts.min())
+    s_span = int(ends.max()) - s_min + 2
+    g_max = int(group_key.max())
+    if (g_max + 1) * s_span < np.iinfo(np.int64).max // 2:
+        key = group_key * np.int64(s_span) + (starts - s_min)
+        order = np.argsort(key, kind="stable")
+    else:
+        order = np.lexsort((ends, starts, group_key))
+    g = group_key[order]
+    s = starts[order]
+    e = ends[order]
+    # Shift each group into a disjoint coordinate band so a single
+    # global running max implements a per-group running max.
+    big = np.int64(max(int(e.max()) - int(s.min()) + 2, 2))
+    gi = np.cumsum(np.concatenate(([0], (np.diff(g) != 0).astype(np.int64))))
+    s_off = s - s.min() + gi * big
+    e_off = e - s.min() + gi * big
+    run_end = np.maximum.accumulate(e_off)
+    new_run = np.empty(len(s), dtype=bool)
+    new_run[0] = True
+    new_run[1:] = s_off[1:] > run_end[:-1]
+    run_idx = np.flatnonzero(new_run)
+    m_start = s[run_idx]
+    m_end = np.maximum.reduceat(e_off, run_idx) - gi[run_idx] * big \
+        + s.min()
+    return g[run_idx], m_start, m_end
+
+
+def build_instance_from_cover_arrays(set_ids, univ_ids, starts, ends,
+                                     n_sets, n_universes, universe_p,
+                                     ranks=None, costs=None):
+    """Build a SetCoverInstance directly from flat cover arrays.
+
+    The fast path for the probe-design pipeline: the cover engine emits
+    (probe set_id, universe j, start, end) spans in genome-global
+    coordinates; no per-probe Python dicts are materialized (unlike the
+    reference's sets-of-IntervalSets, set_cover_filter.py:359-470).
+
+    Args:
+        set_ids, univ_ids, starts, ends: int arrays, one entry per
+            cover interval (within-universe coordinates)
+        n_sets: total number of candidate sets (ids 0..n_sets-1)
+        n_universes: number of universes (ids 0..n_universes-1)
+        universe_p: float64[n_universes] required coverage fraction
+        ranks: int64[n_sets] (default all 1)
+        costs: float32[n_sets] (default all 1)
+
+    Returns:
+        SetCoverInstance
+    """
+    set_ids = np.asarray(set_ids, dtype=np.int64)
+    univ_ids = np.asarray(univ_ids, dtype=np.int64)
+    starts = np.asarray(starts, dtype=np.int64)
+    ends = np.asarray(ends, dtype=np.int64)
+    universe_p = np.asarray(universe_p, dtype=np.float64)
+
+    if costs is None:
+        cost = np.ones(n_sets, dtype=np.float32)
+    else:
+        cost = np.asarray(costs, dtype=np.float32)
+    if ranks is None:
+        rank_arr = np.ones(n_sets, dtype=np.int64)
+    else:
+        rank_arr = np.asarray(ranks, dtype=np.int64)
+    rank_vals = np.unique(rank_arr)
+    rank_idx = np.searchsorted(rank_vals, rank_arr).astype(np.int32)
+
+    # Universe spans = max end seen per universe (coordinates are local
+    # to the universe; the global axis concatenates them).
+    u_span = np.zeros(n_universes, dtype=np.int64)
+    if len(starts):
+        np.maximum.at(u_span, univ_ids, ends)
+    offsets = np.zeros(n_universes + 1, dtype=np.int64)
+    np.cumsum(u_span, out=offsets[1:])
+    u_len = int(offsets[-1])
+
+    g_start = starts + offsets[univ_ids]
+    g_end = ends + offsets[univ_ids]
+
+    # Merge per (set, universe); pair key = set * nU + univ
+    pair_key = set_ids * n_universes + univ_ids
+    mk, ms, me = _merge_by_group(pair_key, g_start, g_end)
+    pair_ids, pair_of_ivl = np.unique(mk, return_inverse=True)
+    set_of_pair = (pair_ids // n_universes).astype(np.int32)
+    univ_of_pair = (pair_ids % n_universes).astype(np.int32)
+
+    # Universe sizes: union of all intervals per universe (sweep).
+    u_size = np.zeros(n_universes, dtype=np.int64)
+    if len(ms):
+        uk, us, ue = _merge_by_group(univ_of_pair[pair_of_ivl].astype(
+            np.int64), ms, me)
+        np.add.at(u_size, uk, ue - us)
+
+    can_uncover = (u_size - universe_p * u_size).astype(np.int64)
+
+    return SetCoverInstance(
+        n_sets=n_sets, n_universes=n_universes, u_size=u_size,
+        can_uncover=can_uncover, ivl_start=ms, ivl_end=me,
+        pair_of_ivl=pair_of_ivl.astype(np.int32),
+        set_of_pair=set_of_pair, univ_of_pair=univ_of_pair,
+        cost=cost, rank_idx=rank_idx, n_rank_vals=len(rank_vals),
+        u_len=u_len, pos_univ_offsets=offsets)
+
+
+# ----------------------------------------------------------------------
+# Device solver: the step state and its checks
+# ----------------------------------------------------------------------
+
+_STATE_TYPES = dict(covered=torch.bool, len_u=torch.int32,
+                    in_cover=torch.bool, cur_rank=torch.int32,
+                    stop=torch.bool, order=torch.int32,
+                    n_chosen=torch.int32)
+_CONST_TYPES = dict(ivl_start=torch.int32, ivl_end=torch.int32,
+                    pair_bounds=torch.int32, set_bounds=torch.int32,
+                    pair_of_ivl=torch.int32, set_of_pair=torch.int32,
+                    univ_of_pair=torch.int32, cost=torch.float32,
+                    rank_idx=torch.int32, can_uncover=torch.int32)
+_V2_CONSTS = ("ivl_start", "ivl_end", "pair_bounds", "set_bounds",
+              "univ_of_pair", "cost", "rank_idx", "can_uncover")
+_V1_CONSTS = ("ivl_start", "ivl_end", "pair_of_ivl", "set_of_pair",
+              "univ_of_pair", "cost", "rank_idx", "can_uncover")
+
+
+def initial_state(covered, u_size, n_sets, keep_order=False):
+    """The state before the first greedy step: nothing chosen, rank
+    tier 0, len_u = u_size (copied to int32).  With keep_order, also the
+    device-resident pick order (filled with -1) and its length."""
+    dev = covered.device
+    state = dict(covered=covered,
+                 len_u=u_size.to(device=dev, dtype=torch.int32, copy=True),
+                 in_cover=torch.zeros(n_sets, dtype=torch.bool, device=dev),
+                 cur_rank=torch.zeros((), dtype=torch.int32, device=dev),
+                 stop=torch.zeros((), dtype=torch.bool, device=dev))
+    if keep_order:
+        state["order"] = torch.full((n_sets,), -1, dtype=torch.int32,
+                                    device=dev)
+        state["n_chosen"] = torch.zeros((), dtype=torch.int32, device=dev)
+    return state
+
+
+def _step_tensors(state, consts, const_names, n_steps):
+    """The state's and the instance's tensors, checked for type,
+    contiguity and shape; returns them with (U, nU, S, M, P)."""
+    if n_steps < 1:
+        raise ValueError("n_steps must be at least 1")
+    named = [(k, state[k]) for k in _STATE_TYPES if k in state]
+    named += [(k, consts[k]) for k in const_names]
+    if ("order" in state) != ("n_chosen" in state):
+        raise ValueError("state holds one of order and n_chosen alone")
+    for k, t in named:
+        si._require(t, _STATE_TYPES.get(k, _CONST_TYPES.get(k)), k)
+    U = state["covered"].numel()
+    nU = state["len_u"].numel()
+    S = consts["cost"].numel()
+    M = consts["ivl_start"].numel()
+    P = consts["univ_of_pair"].numel()
+    want = dict(in_cover=S, rank_idx=S, can_uncover=nU, ivl_end=M,
+                pair_of_ivl=M, set_of_pair=P, pair_bounds=P + 1,
+                set_bounds=S + 1, order=S, cur_rank=1, stop=1, n_chosen=1)
+    for k, t in named:
+        if k in want and t.numel() != want[k]:
+            raise ValueError(f"{k} holds {t.numel()} values, not {want[k]}")
+    return [t for _, t in named], (U, nU, S, M, P)
+
+
+def _scratch(dev, U, P, S):
+    """The per-dispatch scratch of the greedy kernels."""
+    def ints(n):
+        return torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+    nb = -(-S // 256)
+    return dict(prefix=ints(U + 1), tiles=ints(-(-U // _SCAN_TILE)),
+                pair_new=ints(P), pair_aux=ints(max(P, S)),
+                blk_r=torch.empty(max(nb, 1), dtype=torch.float32,
+                                  device=dev),
+                blk_i=ints(nb), blk_any=ints(nb), dec=ints(2))
+
+
+# ----------------------------------------------------------------------
+# K11 init_covered
+# ----------------------------------------------------------------------
+
+def init_covered(ivl_start, ivl_end, U):
+    """bool[U]: True where no interval [ivl_start, ivl_end) lies, the
+    solver's initial coverage.  ivl_start, ivl_end: int32 global
+    coordinates in [0, U]; empty intervals add nothing.
+
+    Replaces catch_tpu/ops/set_cover.py _init_covered_jit (:661-668);
+    the kernel is csrc/init_covered.cu (a difference array by integer
+    atomics, then a prefix; bandwidth bound).
+    """
+    si._require(ivl_start, torch.int32, "ivl_start")
+    si._require(ivl_end, torch.int32, "ivl_end")
+    if si._on_cpu(ivl_start, ivl_end):
+        return _init_covered_plain(ivl_start, ivl_end, U)
+    dev = ivl_start.device
+    covered = torch.empty(U, dtype=torch.bool, device=dev)
+    delta = torch.empty(U + 1, dtype=torch.int32, device=dev)
+    tiles = torch.empty(max(1, -(-U // _SCAN_TILE)), dtype=torch.int32,
+                        device=dev)
+    lib = _build.library()
+    _build.check(lib.ct_init_covered(
+        _build.ptr(ivl_start), _build.ptr(ivl_end), ivl_start.numel(), U,
+        _build.ptr(delta), _build.ptr(tiles), _build.ptr(covered),
+        _build.stream_of(ivl_start)), "init_covered")
+    init_covered.launches += 1
+    return covered
+
+
+init_covered.launches = 0
+
+
+def _init_covered_plain(ivl_start, ivl_end, U):
+    """Plain-PyTorch twin of init_covered."""
+    nonempty = (ivl_end > ivl_start).to(torch.int32)
+    delta = torch.zeros(U + 1, dtype=torch.int32, device=ivl_start.device)
+    delta.index_add_(0, ivl_start.long(), nonempty)
+    delta.index_add_(0, ivl_end.long(), -nonempty)
+    return torch.cumsum(delta[:U], 0) <= 0
+
+
+# ----------------------------------------------------------------------
+# K12 greedy_v2 and K13 greedy_v1
+# ----------------------------------------------------------------------
+
+def greedy_steps_v2(state, consts, n_steps):
+    """Run n_steps greedy steps on a boundary-indexed instance.
+
+    state: see the module docstring (updated in place).  consts: the
+    instance as ensure_assembled leaves it in the scan's dict:
+    ivl_start / ivl_end (int32[M]), pair_bounds (int32[P + 1]),
+    set_bounds (int32[S + 1]), univ_of_pair (int32[P]), cost
+    (float32[S]), rank_idx (int32[S]), can_uncover (int32[nU]) and the
+    ints n_rank_vals and max_ivls_per_set.
+
+    Returns (state, chosens int32[n_steps], picks bool[n_steps]): each
+    step's first-argmin set and whether it was picked; state["stop"] is
+    the last step's stop flag.
+
+    Replaces catch_tpu/ops/set_cover.py _steps_jit_v2 (:836-859) and
+    _greedy_core_v2 (:765-833); the kernel is csrc/greedy_v2.cu (a
+    chain of launches a step, no host synchronisation inside).
+    """
+    tensors, (U, nU, S, M, P) = _step_tensors(state, consts, _V2_CONSTS,
+                                              n_steps)
+    if "order" in state:
+        raise ValueError("greedy_steps_v2 keeps no device pick order")
+    if si._on_cpu(*tensors):
+        return _greedy_steps_v2_plain(state, consts, n_steps)
+    dev = state["covered"].device
+    chosens = torch.empty(n_steps, dtype=torch.int32, device=dev)
+    picks = torch.empty(n_steps, dtype=torch.bool, device=dev)
+    w = _scratch(dev, U, P, S)
+    c, p = consts, _build.ptr
+    lib = _build.library()
+    _build.check(lib.ct_greedy_v2_steps(
+        p(state["covered"]), U, p(state["len_u"]), p(c["can_uncover"]), nU,
+        p(state["in_cover"]), p(c["cost"]), p(c["rank_idx"]), S,
+        p(c["ivl_start"]), p(c["ivl_end"]), p(c["pair_bounds"]),
+        p(c["set_bounds"]), p(c["univ_of_pair"]), P, int(c["n_rank_vals"]),
+        int(c["max_ivls_per_set"]), n_steps, p(state["cur_rank"]),
+        p(state["stop"]), p(chosens), p(picks), p(w["prefix"]),
+        p(w["tiles"]), p(w["pair_new"]), p(w["pair_aux"]), p(w["blk_r"]),
+        p(w["blk_i"]), p(w["blk_any"]), p(w["dec"]),
+        _build.stream_of(chosens)), "greedy_v2")
+    greedy_steps_v2.launches += 1
+    return state, chosens, picks
+
+
+greedy_steps_v2.launches = 0
+
+
+def greedy_steps_v1(state, consts, n_steps):
+    """Run n_steps greedy steps on an instance given by segment ids.
+
+    state: see the module docstring (updated in place); with order and
+    n_chosen in it, each pick is also appended there on the device.
+    consts: ivl_start / ivl_end / pair_of_ivl (int32[M]), set_of_pair /
+    univ_of_pair (int32[P]), cost (float32[S]), rank_idx (int32[S]),
+    can_uncover (int32[nU]) and the int n_rank_vals.
+
+    Returns (state, chosens int32[n_steps], picks bool[n_steps]), as
+    greedy_steps_v2.
+
+    Replaces catch_tpu/ops/set_cover.py _steps_jit (:630-658) and
+    _greedy_core (:292-347), and with the order kept on the device the
+    loop of _solve_jit_padded (:917-945); the kernel is
+    csrc/greedy_v1.cu (segment sums by integer atomics).
+    """
+    tensors, (U, nU, S, M, P) = _step_tensors(state, consts, _V1_CONSTS,
+                                              n_steps)
+    if si._on_cpu(*tensors):
+        return _greedy_steps_v1_plain(state, consts, n_steps)
+    dev = state["covered"].device
+    chosens = torch.empty(n_steps, dtype=torch.int32, device=dev)
+    picks = torch.empty(n_steps, dtype=torch.bool, device=dev)
+    w = _scratch(dev, U, P, S)
+    c, p = consts, _build.ptr
+    keep = "order" in state
+    lib = _build.library()
+    _build.check(lib.ct_greedy_v1_steps(
+        p(state["covered"]), U, p(state["len_u"]), p(c["can_uncover"]), nU,
+        p(state["in_cover"]), p(c["cost"]), p(c["rank_idx"]), S,
+        p(c["ivl_start"]), p(c["ivl_end"]), p(c["pair_of_ivl"]), M,
+        p(c["set_of_pair"]), p(c["univ_of_pair"]), P, int(c["n_rank_vals"]),
+        n_steps, p(state["cur_rank"]), p(state["stop"]), p(chosens),
+        p(picks), p(state["order"]) if keep else None,
+        p(state["n_chosen"]) if keep else None, p(w["prefix"]),
+        p(w["tiles"]), p(w["pair_new"]), p(w["pair_aux"]), p(w["blk_r"]),
+        p(w["blk_i"]), p(w["blk_any"]), p(w["dec"]),
+        _build.stream_of(chosens)), "greedy_v1")
+    greedy_steps_v1.launches += 1
+    return state, chosens, picks
+
+
+greedy_steps_v1.launches = 0
+
+
+def _uncovered_prefix(covered):
+    """int64[U + 1]: uncovered positions before each position."""
+    prefix = torch.zeros(covered.numel() + 1, dtype=torch.int64,
+                         device=covered.device)
+    prefix[1:] = torch.cumsum(~covered, 0)
+    return prefix
+
+
+def _decide_plain(state, consts, score, need, t, chosens, picks):
+    """The end of step t, shared by both twins: the first argmin of the
+    eligible sets' float32 ratios, pick, rank advance and stop (written
+    into state and chosens/picks[t]).  Returns (chosen, pick)."""
+    active = (need > 0).any()
+    cur_rank = state["cur_rank"]
+    elig = (~state["in_cover"] & (consts["rank_idx"] == cur_rank)
+            & (score > 0))
+    ratio = torch.where(elig, consts["cost"] / score.to(torch.float32),
+                        torch.full_like(consts["cost"], float("inf")))
+    any_elig = elig.any()
+    chosen = (torch.argmin(ratio) if ratio.numel() else
+              torch.zeros((), dtype=torch.int64, device=score.device))
+    pick = active & any_elig
+    adv = active & ~any_elig
+    state["stop"].copy_(~active | (adv & (cur_rank + 1
+                                          >= int(consts["n_rank_vals"]))))
+    cur_rank += adv.to(torch.int32)
+    if ratio.numel():
+        state["in_cover"][chosen] |= pick
+    chosens[t] = chosen
+    picks[t] = pick
+    return chosen, pick
+
+
+def _cover_chosen(covered, starts, ends, on_ivl):
+    """covered |= the ranges of the intervals flagged in on_ivl."""
+    w = on_ivl.to(torch.int32)
+    delta = torch.zeros(covered.numel() + 1, dtype=torch.int32,
+                        device=covered.device)
+    delta.index_add_(0, starts, w)
+    delta.index_add_(0, ends, -w)
+    covered |= torch.cumsum(delta[:-1], 0) > 0
+
+
+def _greedy_steps_v2_plain(state, consts, n_steps):
+    """Plain-PyTorch twin of greedy_steps_v2: catch_tpu's
+    _greedy_core_v2, with sums of pair and set slices as differences of
+    int64 cumulative sums."""
+    c = consts
+    dev = state["covered"].device
+    starts, ends = c["ivl_start"].long(), c["ivl_end"].long()
+    pb, sb = c["pair_bounds"].long(), c["set_bounds"].long()
+    uop = c["univ_of_pair"].long()
+    S, P, M = c["cost"].numel(), uop.numel(), starts.numel()
+    pairs = torch.arange(P, device=dev)
+    ivls = torch.arange(M, device=dev)
+    chosens = torch.empty(n_steps, dtype=torch.int32, device=dev)
+    picks = torch.empty(n_steps, dtype=torch.bool, device=dev)
+    for t in range(n_steps):
+        need = torch.clamp(state["len_u"] - c["can_uncover"], min=0)
+        prefix = _uncovered_prefix(state["covered"])
+        new_ivl = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+        new_ivl[1:] = torch.cumsum(prefix[ends] - prefix[starts], 0)
+        pair_new = new_ivl[pb[1:]] - new_ivl[pb[:-1]]
+        capped = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+        capped[1:] = torch.cumsum(torch.minimum(pair_new, need[uop]), 0)
+        score = capped[sb[1:]] - capped[sb[:-1]]
+        chosen, pick = _decide_plain(state, c, score, need, t, chosens,
+                                     picks)
+        # the update touches the chosen set's pairs and intervals only
+        p0 = sb[chosen]
+        p1 = sb[torch.clamp(chosen + 1, max=S)]
+        on_pair = (pairs >= p0) & (pairs < p1) & pick
+        state["len_u"].index_add_(0, uop, -torch.where(
+            on_pair, pair_new, 0).to(torch.int32))
+        _cover_chosen(state["covered"], starts, ends,
+                      (ivls >= pb[p0]) & (ivls < pb[p1]) & pick)
+    return state, chosens, picks
+
+
+def _greedy_steps_v1_plain(state, consts, n_steps):
+    """Plain-PyTorch twin of greedy_steps_v1: catch_tpu's _greedy_core
+    (and _greedy_step's pick order), with segment sums by index_add_."""
+    c = consts
+    dev = state["covered"].device
+    starts, ends = c["ivl_start"].long(), c["ivl_end"].long()
+    poi, sop = c["pair_of_ivl"].long(), c["set_of_pair"].long()
+    uop = c["univ_of_pair"].long()
+    S, P = c["cost"].numel(), uop.numel()
+    set_of_ivl = sop[poi]
+    chosens = torch.empty(n_steps, dtype=torch.int32, device=dev)
+    picks = torch.empty(n_steps, dtype=torch.bool, device=dev)
+    for t in range(n_steps):
+        need = torch.clamp(state["len_u"] - c["can_uncover"], min=0)
+        prefix = _uncovered_prefix(state["covered"])
+        pair_new = torch.zeros(P, dtype=torch.int64, device=dev).index_add_(
+            0, poi, prefix[ends] - prefix[starts])
+        score = torch.zeros(S, dtype=torch.int64, device=dev).index_add_(
+            0, sop, torch.minimum(pair_new, need[uop]))
+        chosen, pick = _decide_plain(state, c, score, need, t, chosens,
+                                     picks)
+        _cover_chosen(state["covered"], starts, ends,
+                      (set_of_ivl == chosen) & pick)
+        state["len_u"].index_add_(0, uop, -torch.where(
+            (sop == chosen) & pick, pair_new, 0).to(torch.int32))
+        if "order" in state and S:
+            at = torch.clamp(state["n_chosen"], max=S - 1).long()
+            state["order"][at] = torch.where(pick, chosen.to(torch.int32),
+                                             state["order"][at])
+            state["n_chosen"] += pick.to(torch.int32)
+    return state, chosens, picks
+
+
+# ----------------------------------------------------------------------
+# The device solvers
+# ----------------------------------------------------------------------
+
+def _dispatch_bound(n_sets, n_rank_vals):
+    """Dispatches that always reach the stop: every step picks a set,
+    advances the rank tier or stops (catch_tpu's bound)."""
+    return 2 + (n_sets + n_rank_vals) // max(1, _STEPS_PER_DISPATCH // 2)
+
+
+def _run_dispatches(step_fn, state, consts, bound):
+    """Dispatch step_fn _STEPS_PER_DISPATCH steps at a time until the
+    stop flag; returns the picks in order (int32).  Without an order in
+    the state, each dispatch reads back its step vectors; with one, only
+    the stop flag comes back until the end.  Reaching `bound` without a
+    stop raises."""
+    order = []
+    for _ in range(bound):
+        state, chosens, picks = step_fn(state, consts, _STEPS_PER_DISPATCH)
+        if "order" not in state:
+            keep = picks.cpu().numpy()
+            order.extend(chosens.cpu().numpy()[keep].tolist())
+        if bool(state["stop"]):
+            break
+    else:
+        raise RuntimeError(f"the device solver took {bound} dispatches "
+                           "without reaching its stop")
+    if "order" in state:
+        return state["order"][:int(state["n_chosen"])].cpu().numpy()
+    return np.array(order, dtype=np.int32)
+
+
+def solve_boundary_instance(dev, n_sets_real):
+    """Solve the assembled device instance `dev`; returns the picked
+    solver set ids (0..n_sets_real - 1) in order, np.int32.
+
+    `dev` is the scan's dict after scan_instance.ensure_assembled.  The
+    state never leaves the device; each dispatch of
+    _STEPS_PER_DISPATCH K12 steps reads back its step vectors and the
+    stop flag.  Reaching the dispatch bound without a stop raises.
+
+    Replaces catch_tpu/ops/set_cover.py solve_boundary_instance
+    (:862-914).
+    """
+    if "ivl_start" not in dev:
+        raise ValueError("the instance is not assembled; run "
+                         "scan_instance.ensure_assembled first")
+    covered = init_covered(dev["ivl_start"], dev["ivl_end"], dev["u_len"])
+    state = initial_state(covered, dev["u_size"], dev["cost"].numel())
+    bound = _dispatch_bound(n_sets_real, int(dev["n_rank_vals"]))
+    return _run_dispatches(greedy_steps_v2, state, dev, bound)
+
+
+def assembled_instance(inst, device):
+    """The device dict solve_boundary_instance takes, for a host
+    SetCoverInstance (one with pos_univ_offsets): its intervals as
+    merged rows keyed set * nU + universe in universe-local coordinates
+    on `device`, through stage E as the scan's instance goes.  Set ids
+    stay the instance's.  (catch_tpu's bench.py builds the same dict by
+    hand for its solver-throughput cell.)"""
+    nU = inst.n_universes
+    offsets = np.asarray(inst.pos_univ_offsets, dtype=np.int64)
+    univ = np.asarray(inst.univ_of_pair, dtype=np.int64)[inst.pair_of_ivl]
+    key = np.asarray(inst.set_of_pair, dtype=np.int64)[inst.pair_of_ivl] \
+        * nU + univ
+    order = np.argsort(key, kind="stable")
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(
+            x[order], dtype=np.int64)).to(device)
+
+    dev = dict(merged=(put(key), put(inst.ivl_start - offsets[univ]),
+                       put(inst.ivl_end - offsets[univ])),
+               n_merged=len(key), offsets=offsets, nU=nU,
+               u_size_host=np.asarray(inst.u_size),
+               can_uncover_host=np.asarray(inst.can_uncover))
+    sets = np.arange(inst.n_sets)
+    return si.ensure_assembled(dev, sets, sets, inst.rank_idx,
+                               inst.n_rank_vals, inst.cost)
+
+
+def _instance_consts(inst, device):
+    """The K13 instance arrays of a host SetCoverInstance on `device`,
+    with u_size; raises where the position axis does not fit int32 or an
+    interval leaves it (the kernels index the axis without a check)."""
+    if inst.u_len >= np.iinfo(np.int32).max:
+        raise ValueError(f"global position axis of {inst.u_len} positions "
+                         "does not fit the solver's int32 coordinates")
+    if len(inst.ivl_start) and (np.min(inst.ivl_start) < 0
+                                or np.max(inst.ivl_end) > inst.u_len):
+        raise ValueError("an interval lies outside the position axis")
+
+    def put(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
+            device)
+
+    consts = {k: put(getattr(inst, k), np.int32) for k in (
+        "ivl_start", "ivl_end", "pair_of_ivl", "set_of_pair",
+        "univ_of_pair", "rank_idx", "can_uncover")}
+    consts.update(cost=put(inst.cost, np.float32),
+                  n_rank_vals=int(inst.n_rank_vals))
+    return consts, put(inst.u_size, np.int32)
+
+
+def _solve_device_steps(inst, device):
+    """Device solve of a host instance as a host loop of K13 dispatches,
+    each reading back only its step vectors and the stop flag.
+
+    Replaces catch_tpu/ops/set_cover.py _solve_device_steps (:712-748).
+    """
+    consts, u_size = _instance_consts(inst, device)
+    covered = init_covered(consts["ivl_start"], consts["ivl_end"],
+                           inst.u_len)
+    state = initial_state(covered, u_size, inst.n_sets)
+    return _run_dispatches(greedy_steps_v1, state, consts,
+                           _dispatch_bound(inst.n_sets, inst.n_rank_vals))
+
+
+def _solve_device(inst, device):
+    """Device-resident solve of a host instance: K11, then K13 steps
+    until the stop flag, with the pick order kept on the device; only
+    the stop flag comes back between dispatches, and the order at the
+    end.
+
+    Replaces catch_tpu/ops/set_cover.py _solve_device (:948-961) and its
+    while loop _solve_jit_padded (:917-945).
+    """
+    consts, u_size = _instance_consts(inst, device)
+    covered = init_covered(consts["ivl_start"], consts["ivl_end"],
+                           inst.u_len)
+    state = initial_state(covered, u_size, inst.n_sets, keep_order=True)
+    return _run_dispatches(greedy_steps_v1, state, consts,
+                           _dispatch_bound(inst.n_sets, inst.n_rank_vals))
+
+
+def solve_instance(inst, force_device=False, device=None):
     """Solve a canonicalized instance; returns dense set indices in pick
     order (np.int32 array).
 
@@ -245,9 +873,19 @@ def solve_instance(inst):
     the lowest-set-id tie-break among equal float32 cost/score ratios),
     which catch_tpu.ops.set_cover.solve_instance runs for tiny
     instances; so the port's picks equal catch_tpu's at every size.
+    With force_device, the K13 step solver runs on `device` (the card
+    unless the caller names the CPU), with the same picks; a failure
+    raises.
     """
     if inst.n_sets == 0 or inst.u_len == 0 or len(inst.ivl_start) == 0:
         return np.empty(0, dtype=np.int32)
     if np.all(inst.can_uncover >= inst.u_size):
         return np.empty(0, dtype=np.int32)
+    if force_device:
+        return _solve_device_steps(
+            inst, resolve_device("cuda" if device is None else device))
     return _solve_host_lazy(inst)
+
+
+si.KERNELS.update(init_covered=init_covered, greedy_v2=greedy_steps_v2,
+                  greedy_v1=greedy_steps_v1)

@@ -7,7 +7,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch, CUDA, nvcc and
      triton versions;
-  2. the build of the nine CUDA kernels from catch_tpu_torch/csrc/;
+  2. the build of the thirteen CUDA kernels from catch_tpu_torch/csrc/;
   3. the five design-scan kernels (pack_merged, the readback, among them)
      against their plain-PyTorch twins on the card, on the inputs the
      ebola175 design gives them: outputs
@@ -57,7 +57,24 @@ Phases (any failure exits non-zero and prints no result line):
      their twins at those shapes (phase 11's group, wave, caps call and
      cluster, phase 12's fragments and the first 8,192 flu10k
      sequences): exactly equal, the float32 distances bit for bit;
-     CUDA-event medians, min and max.
+     CUDA-event medians, min and max;
+ 14. ebola175 m2 as in phase 5 with CATCH_TPU_SOLVE=device (stage E and
+     the greedy steps on the card), counting launches: the FASTA must
+     equal torch_ebola175_m2.fasta byte for byte, and assemble,
+     init_covered, greedy_v2 and the scan's kernels must have launched,
+     and pack_merged (the host route's readback) not;
+     then phase 7's identify and avoid goldens again under the variable
+     (rank tiers on the card);
+ 15. bench.py's solver instance (bench.py:178-198: 100,000 sets, 128
+     universes of 8,192, 4 intervals a set, default_rng(5)), built by the
+     port's build_instance_from_cover_arrays, solved by the host lazy
+     solver, solve_boundary_instance (K10-K12), solve_instance(
+     force_device=True) and _solve_device (K13), counting launches: the
+     four pick orders must be equal; each is timed;
+ 16. assemble and init_covered on phase 14's instance, greedy_v2 on one
+     64-step dispatch from its initial state and greedy_v1 on one of
+     phase 15's instance, against their twins: exactly equal, the whole
+     state included; CUDA-event medians, min and max.
 
 Each phase prints its wall seconds as it ends.  The line before the
 last is the card's name and power limit; the one before it a JSON
@@ -95,6 +112,10 @@ REPLACES = {
     "minhash_caps": "catch_tpu/utils/cluster.py:238",
     "minhash_assign": "catch_tpu/utils/cluster.py:205",
     "minhash_sig": "catch_tpu/utils/lsh.py:257",
+    "assemble": "catch_tpu/ops/scan_instance.py:712",
+    "init_covered": "catch_tpu/ops/set_cover.py:661",
+    "greedy_v2": "catch_tpu/ops/set_cover.py:836",
+    "greedy_v1": "catch_tpu/ops/set_cover.py:630",
 }
 SOURCES = {name: f"catch_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["verify_spans"] = "catch_tpu_torch/csrc/verify_windows.cu"
@@ -102,6 +123,10 @@ for _name in ("minhash_dists", "minhash_codes", "minhash_assign"):
     SOURCES[_name] = "catch_tpu_torch/csrc/minhash_caps.cu"
 DESIGN_KERNELS = ["rolling_hash", "lookup_expand", "verify_windows",
                   "segmented_merge", "pack_merged"]
+SOLVER_KERNELS = ["assemble", "init_covered", "greedy_v2"]
+
+# bench.py's solver-throughput instance (bench.py:178-198).
+SOLVER_N_SETS, SOLVER_N_UNIV, SOLVER_U_LEN = 100_000, 128, 8192
 
 # The H100's published rates (SXM, 700 W): device memory 3.35 TB/s, and
 # 67 T operations/s outside the tensor cores, the rate used for these
@@ -585,6 +610,26 @@ class PhaseClock:
         self.t0 = now
 
 
+def identify_avoid_goldens(tag=""):
+    """Phases 7 and 14: the identify and avoid goldens through the CLI on
+    cuda."""
+    for name, argv in (
+            ("identify", ["identify_a.fasta", "identify_b.fasta", "-i",
+                          "-c", "0.5"]),
+            ("avoid", ["avoid_target.fasta", "--avoid-genomes",
+                       "avoid_bg.fasta"])):
+        out = os.path.join(WORK, f"{name}_m0{tag}.fasta")
+        argv = [os.path.join(GOLDEN, a) if a.endswith(".fasta") else a
+                for a in argv]
+        design(argv + ["-o", out, "-pl", "60", "-ps", "30", "-m", "0",
+                       "-e", "0", "--device", "cuda"])
+        golden = os.path.join(GOLDEN, f"ref_{name}_m0.fasta")
+        if fasta_records(out) != fasta_records(golden):
+            fail(f"{name} m0 probe set{tag} differs from {golden}")
+        print(f"{name} m0{tag}: {len(fasta_records(out))} probes, equal to "
+              "golden", flush=True)
+
+
 def design(args, args_type="basic"):
     from catch_tpu_torch.cli import design as cli
     return cli.main(cli.init_and_parse_args(args, args_type=args_type))
@@ -830,6 +875,199 @@ def check_minhash_kernels(torch, si, kept, frag_sigs, flu_sigs):
     return rows
 
 
+@contextlib.contextmanager
+def solve_on_device():
+    """CATCH_TPU_SOLVE=device for the block: the set-cover filter keeps
+    the instance on the card and runs the device solver."""
+    before = os.environ.get("CATCH_TPU_SOLVE")
+    os.environ["CATCH_TPU_SOLVE"] = "device"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["CATCH_TPU_SOLVE"]
+        else:
+            os.environ["CATCH_TPU_SOLVE"] = before
+
+
+def device_solve_design(torch, si, profiling, in175):
+    """Phase 14: ebola175 m2 through the CLI with the device solver,
+    counting launches, then the identify and avoid goldens under it.
+    Returns the launches and the run's assembled instance."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    out = os.path.join(WORK, "ebola175_m2_device_solve.fasta")
+    kept = []
+    with solve_on_device(), recording(si, "ensure_assembled",
+                                      lambda a, k, r: kept.append(r)):
+        pb, wall, launches, peak = counted(torch, si, profiling, lambda: design(
+            [in175, "-o", out, "-pl", "100", "-m", "2", "-l", "60", "-e",
+             "50", "--device", "cuda"]))
+    if not same_bytes(out, os.path.join(GOLDEN, "torch_ebola175_m2.fasta")):
+        fail("ebola175 m2 with the device solver differs from "
+             "torch_ebola175_m2.fasta")
+    stats = pb.filters[-1].last_run_stats
+    solve_s = profiling.phase_seconds["set_cover:solve"]
+    steps = launches["greedy_v2"] * sct._STEPS_PER_DISPATCH
+    dev, = kept
+    print(f"ebola175 m2 with the device solver: {len(pb.final_probes)} "
+          f"probes, equal to golden; wall {wall:.3f} s; set_cover:solve "
+          f"{solve_s:.4f} s for {stats['set_cover_picks']} picks in {steps} "
+          f"steps ({1e3 * solve_s / steps:.4f} ms a step, "
+          f"{stats['set_cover_picks'] / solve_s:.1f} picks/s); instance "
+          f"{dev['n_merged']} intervals, {dev['univ_of_pair'].numel()} "
+          f"pairs, {dev['cost'].numel()} sets, {dev['u_len']} positions; "
+          f"max {dev['max_pairs_per_set']} pairs and "
+          f"{dev['max_ivls_per_set']} intervals a set; peak allocated "
+          f"device memory {peak / 2**20:.1f} MiB", flush=True)
+    print_phases(profiling, ("candidate", "filter", "set_cover", "scan"))
+    print(f"launches in the device-solver run: {launches}", flush=True)
+    scan_kernels = [k for k in DESIGN_KERNELS if k != "pack_merged"]
+    require_launched(launches, scan_kernels + SOLVER_KERNELS,
+                     "the ebola175 design with the device solver")
+    if launches["pack_merged"]:
+        fail("the device solver's route packed the instance for a readback")
+    si.reset_launches()
+    with solve_on_device():
+        identify_avoid_goldens(" (device solver)")
+    require_launched({n: f.launches for n, f in si.KERNELS.items()},
+                     SOLVER_KERNELS, "the identify and avoid designs")
+    return launches, dev
+
+
+def solver_instance(sct):
+    """bench.py's solver instance (bench.py:178-198), by the port's copy
+    of build_instance_from_cover_arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    n_ivl = SOLVER_N_SETS * 4
+    set_ids = np.repeat(np.arange(SOLVER_N_SETS), 4)
+    univ_ids = rng.integers(0, SOLVER_N_UNIV, size=n_ivl)
+    starts = rng.integers(0, SOLVER_U_LEN - 400, size=n_ivl)
+    ends = starts + rng.integers(150, 400, size=n_ivl)
+    return sct.build_instance_from_cover_arrays(
+        set_ids, univ_ids, starts, ends, n_sets=SOLVER_N_SETS,
+        n_universes=SOLVER_N_UNIV, universe_p=np.ones(SOLVER_N_UNIV))
+
+
+def solver_bench(torch, si, profiling, device):
+    """Phase 15: the four solvers on bench.py's instance, counting
+    launches; every pick order must equal the host lazy solver's.  Each
+    device solver runs twice (wall clock to a synchronised end).
+    Returns the instance and the launches."""
+    import numpy as np
+
+    from catch_tpu_torch.ops import set_cover as sct
+
+    t0 = time.time()
+    inst = solver_instance(sct)
+    print(f"solver instance: {SOLVER_N_SETS} sets, {inst.u_len} positions, "
+          f"{len(inst.ivl_start)} intervals, {len(inst.set_of_pair)} pairs "
+          f"({time.time() - t0:.1f} s to build)", flush=True)
+    t0 = time.time()
+    want = sct._solve_host_lazy(inst)
+    host_s = time.time() - t0
+    print(f"host lazy solver: {len(want)} picks in {host_s:.3f} s "
+          f"({len(want) / host_s:.1f} picks/s)", flush=True)
+    solvers = (
+        ("solve_boundary_instance (K10-K12)", "greedy_v2",
+         lambda: sct.solve_boundary_instance(
+             sct.assembled_instance(inst, device), SOLVER_N_SETS)),
+        ("solve_instance(force_device=True) (K13)", "greedy_v1",
+         lambda: sct.solve_instance(inst, force_device=True, device=device)),
+        ("_solve_device (K13, order on the card)", "greedy_v1",
+         lambda: sct._solve_device(inst, device)))
+
+    def run_all():
+        for name, kernel, fn in solvers:
+            for attempt in (1, 2):
+                n0 = si.KERNELS[kernel].launches
+                torch.cuda.synchronize()
+                t0 = time.time()
+                got = fn()
+                torch.cuda.synchronize()
+                dt = time.time() - t0
+                steps = (si.KERNELS[kernel].launches - n0) \
+                    * sct._STEPS_PER_DISPATCH
+                if not np.array_equal(got, want):
+                    fail(f"{name}: pick order differs from the host lazy "
+                         "solver's")
+                print(f"{name}, run {attempt}: {len(got)} picks, equal to "
+                      f"the host's; {dt:.4f} s, {steps} steps, "
+                      f"{1e3 * dt / steps:.4f} ms a step, "
+                      f"{len(got) / dt:.1f} picks/s", flush=True)
+
+    _, wall, launches, peak = counted(torch, si, profiling, run_all)
+    print(f"launches in the solver runs: {launches}; peak allocated device "
+          f"memory {peak / 2**20:.1f} MiB", flush=True)
+    require_launched(launches, SOLVER_KERNELS + ["greedy_v1"],
+                     "the solver runs")
+    return inst, launches
+
+
+def check_solver_kernels(torch, device, dev, inst):
+    """Phase 16: K10-K13 against their twins: assemble and init_covered
+    on phase 14's instance, one 64-step greedy_v2 dispatch from its
+    initial state, one 64-step greedy_v1 dispatch of phase 15's
+    instance.  Returns the JSON rows."""
+    from catch_tpu_torch.ops import scan_instance as si
+    from catch_tpu_torch.ops import set_cover as sct
+
+    mk, ms, me = dev["merged"]
+    offsets = torch.from_numpy(dev["offsets"]).to(device)
+    n, S, U = mk.numel(), dev["cost"].numel(), dev["u_len"]
+    P, nU = dev["univ_of_pair"].numel(), offsets.numel() - 1
+    n_steps = sct._STEPS_PER_DISPATCH
+
+    def k10(f):
+        out = f(mk, ms, me, offsets, S)
+        return out[:5] + (torch.tensor(out[5:], device=device),)
+
+    def k11(f):
+        return (f(dev["ivl_start"], dev["ivl_end"], U),)
+
+    def stepper(state0, consts):
+        def call(f):
+            state, chosens, picks = f(
+                {k: v.clone() for k, v in state0.items()}, consts, n_steps)
+            return tuple(state.values()) + (chosens, picks)
+        return call
+
+    state12 = sct.initial_state(sct.init_covered(
+        dev["ivl_start"], dev["ivl_end"], U), dev["u_size"], S)
+    consts, u_size = sct._instance_consts(inst, device)
+    state13 = sct.initial_state(sct.init_covered(
+        consts["ivl_start"], consts["ivl_end"], inst.u_len), u_size,
+        inst.n_sets)
+    M13, P13 = len(inst.ivl_start), len(inst.set_of_pair)
+    print(f"solver kernel shapes: ebola175 {n} merged rows, {P} pairs, {S} "
+          f"sets, {nU} universes, {U} positions; bench instance {M13} "
+          f"intervals, {P13} pairs, {inst.n_sets} sets, {inst.u_len} "
+          f"positions; {n_steps} steps a dispatch", flush=True)
+    # Bytes each input read once and each output written once, and an
+    # operation per element.  K10: 24 bytes a row in, 8 out, the pair
+    # arrays (pair_bounds, univ_of_pair) and set_bounds out.  K11: the intervals in, a byte a position out.
+    # A greedy step: `covered`, the prefix, and the interval, pair, set
+    # and universe arrays once.
+    def step(U, M, P, S, nU, ivl_bytes, pair_bytes):
+        return (U + 4 * (U + 1) + ivl_bytes * M + pair_bytes * P + 13 * S
+                + 8 * nU, U + M + P + S)
+    v2 = step(U, n, P, S, nU, 8, 8)
+    v1 = step(inst.u_len, M13, P13, inst.n_sets, inst.n_universes, 12, 8)
+    return compare(torch, [
+        ("assemble", k10, si._assemble_plain, si.assemble, 10,
+         (32 * n + 8 * (nU + 1) + 4 * (2 * P + 1) + 4 * (S + 1),
+          n + P + S)),
+        ("init_covered", k11, sct._init_covered_plain, sct.init_covered, 20,
+         (8 * n + U, n + U)),
+        ("greedy_v2", stepper(state12, dev), sct._greedy_steps_v2_plain,
+         sct.greedy_steps_v2, 5, (n_steps * v2[0], n_steps * v2[1])),
+        ("greedy_v1", stepper(state13, consts), sct._greedy_steps_v1_plain,
+         sct.greedy_steps_v1, 5, (n_steps * v1[0], n_steps * v1[1])),
+    ])
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "catch_tpu_torch")):
         fail("catch_tpu_torch/ is not beside chip_smoke.py; run it from the "
@@ -912,21 +1150,7 @@ def main():
     clock.done(6)
 
     # Phase 7: the identify and avoid goldens through the CLI.
-    for name, argv in (
-            ("identify", ["identify_a.fasta", "identify_b.fasta", "-i",
-                          "-c", "0.5"]),
-            ("avoid", ["avoid_target.fasta", "--avoid-genomes",
-                       "avoid_bg.fasta"])):
-        out = os.path.join(WORK, f"{name}_m0.fasta")
-        argv = [os.path.join(GOLDEN, a) if a.endswith(".fasta") else a
-                for a in argv]
-        design(argv + ["-o", out, "-pl", "60", "-ps", "30", "-m", "0",
-                       "-e", "0", "--device", "cuda"])
-        golden = os.path.join(GOLDEN, f"ref_{name}_m0.fasta")
-        if fasta_records(out) != fasta_records(golden):
-            fail(f"{name} m0 probe set differs from {golden}")
-        print(f"{name} m0: {len(fasta_records(out))} probes, equal to "
-              "golden", flush=True)
+    identify_avoid_goldens()
     clock.done(7)
 
     # Phase 8: the avoid scan at real size, counting launches.
@@ -999,6 +1223,21 @@ def main():
                          else launches[r["name"]])
     rows += mh_rows
     clock.done(13)
+
+    # Phase 14: ebola175 m2 and the rank goldens with the device solver.
+    solver_launches, dev175 = device_solve_design(torch, si, profiling, in175)
+    clock.done(14)
+
+    # Phase 15: the four solvers on bench.py's solver instance.
+    inst, k13_launches = solver_bench(torch, si, profiling, device)
+    clock.done(15)
+
+    # Phase 16: the solver kernels against their twins.
+    for r in check_solver_kernels(torch, device, dev175, inst):
+        r["launches"] = (k13_launches if r["name"] == "greedy_v1"
+                         else solver_launches)[r["name"]]
+        rows.append(r)
+    clock.done(16)
 
     print(json.dumps({"kernels": rows}))
     print(card)

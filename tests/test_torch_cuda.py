@@ -363,3 +363,198 @@ def test_minhash_sig_equals_twin(cuda):
     want = mh._minhash_sig_plain(codes.to(cuda), ab.to(cuda))
     _assert_equal((got,), (want,))
     assert torch.equal(got.cpu(), mh._minhash_sig_plain(codes, ab))
+
+
+# ----------------------------------------------------------------------
+# The device set-cover solver: K10 assemble, K11 init_covered,
+# K12 greedy_v2, K13 greedy_v1
+# ----------------------------------------------------------------------
+
+def _cover_instance(case):
+    """A host instance from the port's build_instance_from_cover_arrays:
+    sets 45-59 hold no interval, some spans are empty (start == end),
+    costs 1, 2 and 10 and two rank tiers; 'ties' makes every first ratio
+    equal (sets of 3 positions at cost 1 and one of 30 at cost 10), and
+    'nothing' has can_uncover >= u_size everywhere (p = 0)."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    if case == "ties":
+        sid = np.concatenate([np.arange(10), [10], [11]])
+        st = np.concatenate([3 * np.arange(10), [30], [60]])
+        en = np.concatenate([3 * np.arange(10) + 3, [60], [64]])
+        ranks = np.ones(12, dtype=np.int64)
+        ranks[11] = 2
+        costs = np.ones(12, dtype=np.float32)
+        costs[10] = 10
+        return sct.build_instance_from_cover_arrays(
+            sid, np.zeros(12), st, en, 12, 1, np.ones(1), ranks=ranks,
+            costs=costs)
+    rng = np.random.default_rng(7)
+    n_sets, nU, n = 60, 5, 400
+    sid = rng.integers(0, 45, size=n)
+    st = rng.integers(0, 3000, size=n)
+    en = st + rng.integers(0, 300, size=n)
+    en[::9] = st[::9]
+    p = np.zeros(nU) if case == "nothing" else np.array(
+        [1.0, 0.8, 0.5, 1.0, 0.95])
+    return sct.build_instance_from_cover_arrays(
+        sid, rng.integers(0, nU, size=n), st, en, n_sets, nU, p,
+        ranks=rng.integers(1, 3, size=n_sets),
+        costs=rng.choice([1.0, 2.0, 10.0], size=n_sets))
+
+
+def _merged_rows(inst, dev):
+    """The instance's intervals as the scan's merged rows on dev."""
+    nU = inst.n_universes
+    univ = inst.univ_of_pair[inst.pair_of_ivl].astype(np.int64)
+    key = inst.set_of_pair[inst.pair_of_ivl].astype(np.int64) * nU + univ
+    off = inst.pos_univ_offsets
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        key, inst.ivl_start - off[univ], inst.ivl_end - off[univ], off)]
+
+
+def _state_tuple(state, chosens, picks):
+    keys = ("covered", "len_u", "in_cover", "cur_rank", "stop", "order",
+            "n_chosen")
+    return tuple(state[k] for k in keys if k in state) + (chosens, picks)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "no_rows"])
+def test_assemble_equals_twin(cuda, case):
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _cover_instance("random" if case == "no_rows" else case)
+    rows = _merged_rows(inst, cuda)
+    if case == "no_rows":
+        rows = [x[:0] for x in rows[:3]] + rows[3:]
+    got = si.assemble(*rows, inst.n_sets)
+    torch.cuda.synchronize()
+    want = si._assemble_plain(*rows, inst.n_sets)
+    _assert_equal(got[:5], want[:5])
+    assert got[5:] == want[5:]
+    if case == "random":
+        assert got[5] > 1 and got[6] > got[5]
+        dev = sct.assembled_instance(inst, cuda)
+        assert dev["max_ivls_per_set"] == got[6]
+        assert torch.equal(dev["set_bounds"].cpu(), torch.from_numpy(
+            np.searchsorted(inst.set_of_pair, np.arange(inst.n_sets + 1))
+            .astype(np.int32)))
+
+
+@pytest.mark.parametrize("U", [1, 4095, 4096, 4097, 3 * 4096 + 5,
+                               (1 << 20) + 3])
+def test_init_covered_equals_twin(cuda, U):
+    """Every tile boundary of the scan, empty intervals, intervals ending
+    at the axis' end, and no intervals at all."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    rng = np.random.default_rng(U)
+    M = max(1, U // 40)
+    s = rng.integers(0, U, size=M)
+    e = np.minimum(U, s + rng.integers(0, 90, size=M))
+    e[::4] = s[::4]
+    s[0], e[0] = max(0, U - 3), U
+    st, et = (torch.from_numpy(x.astype(np.int32)).to(cuda) for x in (s, e))
+    got = sct.init_covered(st, et, U)
+    torch.cuda.synchronize()
+    _assert_equal([got], [sct._init_covered_plain(st, et, U)])
+    none = sct.init_covered(st[:0], et[:0], U)
+    assert bool(none.all())
+
+
+def _v2_setup(case, dev):
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _cover_instance(case)
+    d = sct.assembled_instance(inst, dev)
+    covered = sct.init_covered(d["ivl_start"], d["ivl_end"], d["u_len"])
+    return inst, d, sct.initial_state(covered, d["u_size"], inst.n_sets)
+
+
+def _clone(state):
+    return {k: v.clone() for k, v in state.items()}
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "nothing"])
+def test_greedy_v2_equals_twin(cuda, case):
+    """One 64-step dispatch on the card against the twin, state included
+    (the stop latches mid-dispatch, after a rank advance in 'ties'); then
+    64 single-step dispatches give the same state."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst, d, state0 = _v2_setup(case, cuda)
+    got = sct.greedy_steps_v2(_clone(state0), d, 64)
+    torch.cuda.synchronize()
+    want = sct._greedy_steps_v2_plain(_clone(state0), d, 64)
+    _assert_equal(_state_tuple(*got), _state_tuple(*want))
+    state, chosens, picks = got
+    assert bool(state["stop"])
+    if case == "nothing":
+        assert not picks.any()
+    else:
+        assert 0 < int(picks.sum()) < 64
+    if case == "ties":                        # 11 ties, a rank advance
+        assert chosens[:13].tolist() == list(range(11)) + [0, 11]
+        assert picks[:13].tolist() == [True] * 11 + [False, True]
+        assert int(state["cur_rank"]) == 1
+    single = _clone(state0)
+    for t in range(64):
+        single, ch, pk = sct.greedy_steps_v2(single, d, 1)
+        assert ch.item() == chosens[t].item() and pk.item() == picks[t].item()
+    _assert_equal(_state_tuple(single, chosens, picks),
+                  _state_tuple(*got))
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "nothing"])
+@pytest.mark.parametrize("keep_order", [False, True])
+def test_greedy_v1_equals_twin(cuda, case, keep_order):
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _cover_instance(case)
+    consts, u_size = sct._instance_consts(inst, cuda)
+    covered = sct.init_covered(consts["ivl_start"], consts["ivl_end"],
+                               inst.u_len)
+    state0 = sct.initial_state(covered, u_size, inst.n_sets, keep_order)
+    got = sct.greedy_steps_v1(_clone(state0), consts, 64)
+    torch.cuda.synchronize()
+    want = sct._greedy_steps_v1_plain(_clone(state0), consts, 64)
+    _assert_equal(_state_tuple(*got), _state_tuple(*want))
+    assert bool(got[0]["stop"])
+
+
+@pytest.mark.parametrize("case", ["random", "ties"])
+def test_device_solvers_on_cuda_equal_host(cuda, case):
+    """The boundary solver, the step solver and the device-resident loop
+    on the card give the host lazy solver's picks."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _cover_instance(case)
+    want = sct.solve_instance(inst)
+    assert len(want) > 0
+    for got in (sct.solve_boundary_instance(sct.assembled_instance(
+                    inst, cuda), inst.n_sets),
+                sct.solve_instance(inst, force_device=True, device=cuda),
+                sct._solve_device(inst, cuda)):
+        assert np.array_equal(got, want)
+
+
+def test_filter_device_solve_on_cuda(cuda, monkeypatch):
+    """CATCH_TPU_SOLVE=device on the card gives the host solver's probe
+    set, through stage E and K10-K12."""
+    from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
+    from catch_tpu_torch.genome import Genome
+
+    genomes = [Genome.from_one_seq(g[0]) for g in _genomes(4, 1, False)]
+    probes = make_candidate_probes_from_sequences(
+        [g.seqs[0] for g in genomes], probe_length=80, probe_stride=40)
+    want = [p.seq_str for p in SetCoverFilter(
+        2, 60, cover_extension=25, device="cuda").filter(
+        [list(probes)], [genomes], input_is_grouped=True)[0]]
+    monkeypatch.setenv("CATCH_TPU_SOLVE", "device")
+    si.reset_launches()
+    got = [p.seq_str for p in SetCoverFilter(
+        2, 60, cover_extension=25, device="cuda").filter(
+        [list(probes)], [genomes], input_is_grouped=True)[0]]
+    assert got == want and got
+    for name in ("assemble", "init_covered", "greedy_v2"):
+        assert si.KERNELS[name].launches > 0, name
