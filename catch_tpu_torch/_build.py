@@ -11,10 +11,14 @@ failed build raises with the compiler's output.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; ``check`` turns a nonzero
-code into an exception.
+code into an exception.  A launch goes to the calling thread's current
+card, and a stream of another card is an invalid handle there, so every
+kernel wrapper is decorated with ``on_own_device``: the card of its
+tensors is current while it runs.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,7 +29,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-__all__ = ["library", "check", "ptr", "stream_of", "build_seconds"]
+__all__ = ["library", "check", "ptr", "stream_of", "on_own_device",
+           "build_seconds"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -42,7 +47,7 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "ct_rolling_hash": [_P, _I64, _I64, _I32, _I64, _P, _P],
     "ct_lookup": [_P, _I64, _P, _I64, _P, _P, _P],
-    "ct_expand": [_P, _P, _P, _I64, _P, _P, _I64, _P, _P],
+    "ct_expand": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _P, _P],
     "ct_unique_flags": [_P, _I64, _P, _P],
     "ct_unique_emit": [_P, _P, _P, _I64, _P, _P, _P],
     "ct_verify_count": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
@@ -78,6 +83,10 @@ _SIGNATURES = {
     "ct_greedy_v1_steps": [_P, _I64, _P, _P, _I64, _P, _P, _P, _I64, _P, _P,
                            _P, _I64, _P, _P, _I64, _I32, _I32, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "ct_gs_candidate": [_P, _I64, _P, _P, _P, _I64, _P],
+    "ct_gs_decide": [_P, _I32, _P, _P, _P, _I64, _I32, _P],
+    "ct_gs_collect": [_P, _P, _I64, _P],
+    "ct_gs_apply": [_P, _P, _I32, _P],
 }
 
 _lock = threading.Lock()
@@ -176,3 +185,27 @@ def ptr(t):
 def stream_of(t):
     """The current CUDA stream of the tensor's device."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _first_tensor(values):
+    for v in values:
+        if isinstance(v, dict):
+            v = _first_tensor(v.values())
+        if isinstance(v, torch.Tensor):
+            return v
+    return None
+
+
+def on_own_device(fn):
+    """Decorator of a kernel wrapper: while it runs, the card of its
+    first tensor argument (a dict argument is searched too) is the
+    thread's current CUDA device.  The wrapper itself checks that all
+    its tensors share that device.  CPU tensors change nothing."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        t = _first_tensor(args)
+        if t is None or not t.is_cuda:
+            return fn(*args, **kwargs)
+        with torch.cuda.device(t.device):
+            return fn(*args, **kwargs)
+    return wrapped

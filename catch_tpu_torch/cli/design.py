@@ -8,9 +8,12 @@ a design per cluster, set cover under the mismatch/LCS model,
 identification, avoided genomes, the tolerant model and the coverage
 analysis, with the same flag names and the same 'basic' and 'large'
 defaults.  `--device` (default `cuda`) says where the kernels run; a
-missing CUDA device is an error, never a quiet switch to the CPU.  Every
-other flag of catch_tpu's CLI is refused with the ROADMAP item that
-will bring it.
+missing CUDA device is an error, never a quiet switch to the CPU.
+`--num-devices` spreads the scans over a mesh of that many devices; a
+mesh that cannot be built is an error too.  Every other flag of
+catch_tpu's CLI is refused with the ROADMAP item that will bring it,
+and so is a mesh across processes (CATCH_TPU_COORDINATOR or
+CATCH_TPU_MULTIHOST in the environment: ROADMAP queue 1, item 10b).
 
 Run as ``python -m catch_tpu_torch.cli.design``, or with the 'large'
 defaults as ``python -m catch_tpu_torch.cli.design_large``.
@@ -28,6 +31,7 @@ from catch_tpu_torch.filters.duplicate import DuplicateFilter
 from catch_tpu_torch.filters.near_duplicate import (
     NearDuplicateFilterWithHammingDistance, NearDuplicateFilterWithMinHash)
 from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
+from catch_tpu_torch.parallel import mesh as device_mesh
 from catch_tpu_torch.utils import log, seq_io, version
 
 _ARGS_TYPES = ("basic", "large")
@@ -37,7 +41,6 @@ _ARGS_TYPES = ("basic", "large")
 _REFUSED = {
     ("--write-taxid-acc", "--ncbi-api-key"):
         "NCBI downloads need the network",
-    ("--num-devices",): "ROADMAP queue 1, item 10",
     ("--custom-hybridization-fn", "--custom-hybridization-fn-tolerant",
      "--filter-from-fasta", "--skip-set-cover", "--add-adapters",
      "--adapter-a", "--adapter-b", "--filter-polya",
@@ -186,6 +189,24 @@ def main(args):
         filter_base.set_max_num_processes_for_filter_over_groupings(
             args.max_num_processes)
 
+    # Device mesh: spread the scans over the visible devices of
+    # --device's type when there is more than one, as catch_tpu does.
+    for var in ("CATCH_TPU_COORDINATOR", "CATCH_TPU_MULTIHOST"):
+        if os.environ.get(var):
+            raise NotImplementedError(
+                f"{var} is set, but a mesh across processes is not "
+                "supported by catch_tpu_torch yet (ROADMAP queue 1, item "
+                "10b)")
+    mesh = None
+    n_dev = len(device_mesh.visible_places(device))
+    limit = args.num_devices if args.num_devices else n_dev
+    if args.max_num_processes is not None:
+        limit = min(limit, args.max_num_processes)
+    n_use = min(n_dev, limit)
+    if n_use > 1:
+        mesh = device_mesh.make_mesh(n_use, device)
+        logger.info("Spreading the scans across %d devices", n_use)
+
     scf = SetCoverFilter(
         mismatches=args.mismatches, lcf_thres=args.lcf_thres,
         island_of_exact_match=args.island_of_exact_match,
@@ -197,7 +218,7 @@ def main(args):
         kmer_probe_map_k=kmer_probe_map_k,
         kmer_probe_map_use_native_dict=(
             args.use_native_dict_when_finding_tolerant_coverage),
-        device=device)
+        device=device, mesh=mesh)
     cluster_kw = {}
     if args.cluster_and_design_separately:
         # --skip-set-cover is refused (item 12), so the clusters merge
@@ -382,6 +403,10 @@ def init_and_parse_args(argv=None, args_type="basic"):
     parser.add_argument("--max-num-processes",
         type=check_max_num_processes,
         help="(Optional) Cap on the threads that filter groups in parallel")
+    parser.add_argument("--num-devices", type=int,
+        help=("(Optional) Spread the scans over a mesh of at most this "
+              "many devices, --device first (default: all that are "
+              "visible; also capped by --max-num-processes)"))
     parser.add_argument("--kmer-probe-map-k", type=int,
         help=("(Optional) Seed k-mer length for mapping candidate "
               "probes to target sequences (pigeonhole when possible, "

@@ -7,7 +7,13 @@ fields as catch_tpu's ProbeSearcher holds them (numpy arrays and ints),
 so both packages scan and join with exactly the same state.  The
 set-cover solvers read an instance: `instance_from_reference` copies
 one from catch_tpu's fields into the port's SetCoverInstance.  The
-clustering and the near-duplicate filter read MinHash state instead:
+sharded solver reads a partition and a state per place:
+`partition_from_reference` strips the pads from catch_tpu's
+`_partition_instance` output, and `sharded_states_from_reference` turns
+the state tuple of its `greedy_step_sharded`, stacked over the shards,
+into the port's per-place states, so both packages step from the same
+state.  The clustering and the near-duplicate filter read MinHash
+state instead:
 `signature_matrix` turns either package's signatures into the tensor
 the clustering holds, and `minhash_params` draws the near-duplicate
 filter's hash parameters from either package's MinHashFamily.  The
@@ -23,8 +29,9 @@ from catch_tpu_torch.ops.minhash import MERSENNE_P
 from catch_tpu_torch.ops.set_cover import SetCoverInstance
 
 __all__ = ["REFERENCE_FIELDS", "reference_arrays", "searcher_from_reference",
-           "INSTANCE_FIELDS", "instance_from_reference", "signature_matrix",
-           "minhash_params"]
+           "INSTANCE_FIELDS", "instance_from_reference",
+           "partition_from_reference", "sharded_states_from_reference",
+           "signature_matrix", "minhash_params"]
 
 # The fields of catch_tpu.ops.cover.ProbeSearcher that the scan reads.
 REFERENCE_FIELDS = ("probe_codes", "probe_lens", "alphabet_lut", "k_seed",
@@ -66,11 +73,12 @@ def reference_arrays(searcher):
         join_params=tuple(int(x) for x in searcher._join_params()))
 
 
-def searcher_from_reference(arrays, device=None):
+def searcher_from_reference(arrays, device=None, mesh=None):
     """A catch_tpu_torch ProbeSearcher holding the given scan state.
 
     `arrays` maps REFERENCE_FIELDS to values (see reference_arrays);
-    `device` is where its span scan runs.  The searcher has no Probe
+    `device` is where its span scan runs, `mesh` the mesh its scans
+    spread over.  The searcher has no Probe
     objects; `probes` is None, and the scans read the probe count from
     probe_codes.
     """
@@ -85,6 +93,7 @@ def searcher_from_reference(arrays, device=None):
                              "island_of_exact_match"])
     s.stats = {"candidates": 0}
     s.device = device
+    s.mesh = mesh
     s.probes = None
     s.probe_codes = np.ascontiguousarray(arrays["probe_codes"],
                                          dtype=np.uint8)
@@ -112,6 +121,67 @@ def instance_from_reference(inst):
     return SetCoverInstance(**{
         f: (np.array(getattr(inst, f)) if f in _INSTANCE_ARRAYS
             else int(getattr(inst, f))) for f in INSTANCE_FIELDS})
+
+
+def partition_from_reference(ref, inst):
+    """The port's partition (parallel.set_cover.partition_instance's
+    dict, numpy arrays) of the instance `inst`, from the output `ref` of
+    catch_tpu's _partition_instance: per shard the real prefix of every
+    padded array.  A padded pair holds the set id 2^31 - 1, a padded
+    interval points at the shard's last (dummy) pair slot, and the sets
+    past the instance's last hold the never-eligible rank n_rank_vals."""
+    n_shards, nP_loc = ref["set_of_pair"].shape
+    S, S_loc = int(inst.n_sets), int(ref["S_loc"])
+    int32_max = np.iinfo(np.int32).max
+    shards = []
+    for d in range(n_shards):
+        n_pairs = int(np.sum(ref["set_of_pair"][d] != int32_max))
+        n_ivls = int(np.sum(ref["pair_of_ivl"][d] != nP_loc - 1))
+        n_sets = max(0, min(S_loc, S - d * S_loc))
+        shard = {k: np.ascontiguousarray(ref[k][d][:n_ivls])
+                 for k in ("ivl_start", "ivl_end", "pair_of_ivl")}
+        shard.update({k: np.ascontiguousarray(ref[k][d][:n_pairs])
+                      for k in ("set_of_pair", "univ_of_pair")})
+        shard.update(cost=np.ascontiguousarray(ref["cost_loc"][d][:n_sets]),
+                     rank_idx=np.ascontiguousarray(
+                         ref["rank_loc"][d][:n_sets]),
+                     base=d * S_loc)
+        shards.append(shard)
+    set_of_pair = np.asarray(inst.set_of_pair)
+    per_set = max(S, 1)
+    return dict(
+        shards=shards, S_loc=S_loc, n_sets=S,
+        n_universes=int(inst.n_universes), u_len=int(inst.u_len),
+        n_rank_vals=int(ref["n_rank_vals"]),
+        max_ivls_per_set=int(np.bincount(
+            set_of_pair[np.asarray(inst.pair_of_ivl)],
+            minlength=per_set).max()),
+        max_pairs_per_set=int(np.bincount(set_of_pair,
+                                          minlength=per_set).max()))
+
+
+def sharded_states_from_reference(state, part, places):
+    """The port's per-place states from the state of catch_tpu's
+    greedy_step_sharded, every element stacked over the shards (leading
+    axis n): (covered [n, U_pad], len_u [n, nU_pad], in_cover_loc
+    [n, S_loc], order [n, S_pad], n_chosen [n], cur_rank [n], stop [n]).
+    Place d takes row d, cut to the instance's real sizes (`part`: the
+    port's partition), as tensors on places[d]."""
+    covered, len_u, in_cover, order, n_chosen, cur_rank, stop = (
+        np.asarray(x) for x in state)
+    states = []
+    for d, (shard, place) in enumerate(zip(part["shards"], places)):
+        def put(x, dtype):
+            return torch.from_numpy(np.array(x, dtype=dtype)).to(place)
+        states.append(dict(
+            covered=put(covered[d][:part["u_len"]], np.bool_),
+            len_u=put(len_u[d][:part["n_universes"]], np.int32),
+            in_cover=put(in_cover[d][:len(shard["cost"])], np.bool_),
+            order=put(order[d][:part["n_sets"]], np.int32),
+            n_chosen=put(n_chosen[d], np.int32),
+            cur_rank=put(cur_rank[d], np.int32),
+            stop=put(stop[d], np.bool_)))
+    return states
 
 
 def signature_matrix(signatures, device):

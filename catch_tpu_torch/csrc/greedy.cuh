@@ -1,8 +1,12 @@
 // Shared pieces of the set-cover kernels (init_covered.cu, greedy_v2.cu,
-// greedy_v1.cu, see catch_tpu_torch/ops/set_cover.py):
+// greedy_v1.cu, see catch_tpu_torch/ops/set_cover.py; greedy_sharded.cu,
+// see catch_tpu_torch/parallel/set_cover.py):
 //   - an int32 prefix scan over the position axis in three passes (tile
 //     sums, one block scanning the tile sums, tile writes), with the
 //     item loaded and the inclusive prefix stored through functors;
+//   - a greedy step's segment sums by integer atomics (intervals into
+//     pairs, capped pairs into sets), for the instances that name each
+//     interval's pair and each pair's set;
 //   - a greedy step's per-set candidate: eligibility and the float32
 //     ratio, and the block minimum of (ratio, set id);
 //   - the one-block decide step that ends every greedy step.
@@ -124,6 +128,37 @@ struct PrefixStore {
     __device__ void operator()(int64_t i, int v) const { prefix[i + 1] = v; }
 };
 
+// Segment sums of a step, pass 1: one thread per interval adds
+// prefix[end] - prefix[start] to pair_new[pair_of_ivl].
+__global__ void ct_ivl_sums_kernel(const int* __restrict__ prefix,
+                                   const int* __restrict__ ivl_start,
+                                   const int* __restrict__ ivl_end,
+                                   const int* __restrict__ pair_of_ivl,
+                                   int64_t M, int* __restrict__ pair_new) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= M) return;
+    const int v = prefix[ivl_end[i]] - prefix[ivl_start[i]];
+    if (v != 0) atomicAdd(&pair_new[pair_of_ivl[i]], v);
+}
+
+// Pass 2: one thread per pair adds min(pair_new, need of its universe)
+// to score[set_of_pair - set_base] (set_base: the first set id of the
+// score array, 0 unless the sets are sharded).
+__global__ void ct_pair_scores_kernel(const int* __restrict__ pair_new,
+                                      const int* __restrict__ set_of_pair,
+                                      const int* __restrict__ univ_of_pair,
+                                      int64_t P,
+                                      const int* __restrict__ len_u,
+                                      const int* __restrict__ can_uncover,
+                                      int set_base, int* __restrict__ score) {
+    const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= P) return;
+    const int u = univ_of_pair[p];
+    const int need = max(len_u[u] - can_uncover[u], 0);
+    const int capped = min(pair_new[p], need);
+    if (capped != 0) atomicAdd(&score[set_of_pair[p] - set_base], capped);
+}
+
 // (ratio, set id) a is better than b: a smaller ratio, or the same ratio
 // and a lower id (the first argmin, as jnp.argmin and torch.argmin).
 __device__ __forceinline__ bool ct_better(float ra, int ia, float rb,
@@ -165,17 +200,19 @@ __device__ __forceinline__ void ct_block_min(float& r, int& i) {
 // cost / float32(score) by IEEE division (never a reciprocal product: the
 // last bit decides ties), +inf when not eligible.  Threads past the last
 // set pass s = -1 and take part in the block minimum with (+inf,
-// INT_MAX).  Thread 0 writes the block's (ratio, id, any eligible).
+// INT_MAX).  Thread 0 writes the block's (ratio, id, any eligible); the
+// id is s + id_base (the first set id of a shard's arrays).
 __device__ __forceinline__ void ct_set_candidates(
         int64_t s, int sc, const bool* __restrict__ in_cover,
         const int* __restrict__ rank_idx, int cur_rank,
         const float* __restrict__ cost, float* __restrict__ blk_r,
-        int* __restrict__ blk_i, int* __restrict__ blk_any) {
+        int* __restrict__ blk_i, int* __restrict__ blk_any,
+        int id_base = 0) {
     float r = INFINITY;
     int i = INT_MAX;
     int elig = 0;
     if (s >= 0) {
-        i = (int)s;
+        i = (int)s + id_base;
         elig = !in_cover[s] && rank_idx[s] == cur_rank && sc > 0;
         if (elig) r = __fdiv_rn(cost[s], __int2float_rn(sc));
     }
@@ -191,7 +228,8 @@ __device__ __forceinline__ void ct_set_candidates(
 // The decide step (one block of CT_DECIDE_THREADS): the global first
 // argmin over the set blocks, active = any universe still needs
 // positions, then pick, rank advance, stop and the chosen set's
-// in_cover flag, as catch_tpu's _greedy_core/_greedy_core_v2.  With no
+// in_cover flag (in_cover may be null: the sharded solver's owner sets
+// its own), as catch_tpu's _greedy_core/_greedy_core_v2.  With no
 // eligible set the chosen id is the first argmin of all +inf, set 0.
 // dec[0..1] = (chosen, pick) for the update kernel; the step's chosen
 // and pick also go to chosens/picks[step] and, for the device-resident
@@ -222,7 +260,7 @@ __global__ void ct_decide_kernel(
     const int cr = *cur_rank;
     *stop = !act || (adv && cr + 1 >= n_rank_vals);
     *cur_rank = cr + (adv ? 1 : 0);
-    if (pick) in_cover[chosen] = true;
+    if (pick && in_cover) in_cover[chosen] = true;
     dec[0] = chosen;
     dec[1] = pick ? 1 : 0;
     if (chosens) {

@@ -8,9 +8,9 @@
 // call runs n_steps steps with no host synchronisation; a step is:
 //   1. the uncovered prefix (greedy.cuh's scan);
 //   2. intervals: one thread per interval adds prefix[end] - prefix[start]
-//      to pair_new[pair_of_ivl] by an integer atomic;
+//      to pair_new[pair_of_ivl] by an integer atomic (greedy.cuh);
 //   3. pairs: one thread per pair adds min(pair_new, need of its
-//      universe) to score[set_of_pair] by an integer atomic;
+//      universe) to score[set_of_pair] by an integer atomic (greedy.cuh);
 //   4. sets: eligibility, the float32 ratio and each block's first
 //      (ratio, set id) minimum (greedy.cuh);
 //   5. decide (greedy.cuh), which also appends a pick to `order` when the
@@ -25,31 +25,6 @@
 // intervals, pairs and sets and the whole position axis); the atomics of
 // pass 2 and 3 land on mostly distinct addresses.
 #include "greedy.cuh"
-
-__global__ void v1_ivl_kernel(const int* __restrict__ prefix,
-                              const int* __restrict__ ivl_start,
-                              const int* __restrict__ ivl_end,
-                              const int* __restrict__ pair_of_ivl, int64_t M,
-                              int* __restrict__ pair_new) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= M) return;
-    const int v = prefix[ivl_end[i]] - prefix[ivl_start[i]];
-    if (v != 0) atomicAdd(&pair_new[pair_of_ivl[i]], v);
-}
-
-__global__ void v1_pair_kernel(const int* __restrict__ pair_new,
-                               const int* __restrict__ set_of_pair,
-                               const int* __restrict__ univ_of_pair,
-                               int64_t P, const int* __restrict__ len_u,
-                               const int* __restrict__ can_uncover,
-                               int* __restrict__ score) {
-    const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= P) return;
-    const int u = univ_of_pair[p];
-    const int need = max(len_u[u] - can_uncover[u], 0);
-    const int capped = min(pair_new[p], need);
-    if (capped != 0) atomicAdd(&score[set_of_pair[p]], capped);
-}
 
 __global__ void v1_set_kernel(const int* __restrict__ score, int64_t S,
                               const bool* __restrict__ in_cover,
@@ -102,15 +77,15 @@ extern "C" int ct_greedy_v1_steps(
         if (P > 0) cudaMemsetAsync(pair_new, 0, P * sizeof(int), st);
         if (S > 0) cudaMemsetAsync(score, 0, S * sizeof(int), st);
         if (M > 0)
-            v1_ivl_kernel<<<ct_blocks(M, 256), 256, 0, st>>>(
+            ct_ivl_sums_kernel<<<ct_blocks(M, 256), 256, 0, st>>>(
                 (const int*)prefix, (const int*)ivl_start,
                 (const int*)ivl_end, (const int*)pair_of_ivl, M,
                 (int*)pair_new);
         if (P > 0)
-            v1_pair_kernel<<<ct_blocks(P, 256), 256, 0, st>>>(
+            ct_pair_scores_kernel<<<ct_blocks(P, 256), 256, 0, st>>>(
                 (const int*)pair_new, (const int*)set_of_pair,
                 (const int*)univ_of_pair, P, (const int*)len_u,
-                (const int*)can_uncover, (int*)score);
+                (const int*)can_uncover, 0, (int*)score);
         if (S > 0)
             v1_set_kernel<<<nb_s, 256, 0, st>>>(
                 (const int*)score, S, (const bool*)in_cover,

@@ -7,7 +7,9 @@
 // prefix table, 16-bit count halves, a planning grid and bucketed
 // re-dispatch; here each sample does a plain binary search, a
 // torch.cumsum of the counts gives every sample its output offset, and
-// each sample writes its own hits.  A hit is written as the packed key
+// each sample writes its own hits (sample i of the call is sample
+// first + i of the corpus, so a place can look up a range of the samples).
+// A hit is written as the packed key
 // probe * 2^32 + alignment (alignment >= 1 by the corpus's leading pad),
 // so one torch.sort orders the pairs and the compaction keeps the first
 // row of every run of equal keys.
@@ -46,14 +48,15 @@ __global__ void expand_kernel(const int64_t* __restrict__ lo,
                               int64_t n_q,
                               const int64_t* __restrict__ tbl_p,
                               const int64_t* __restrict__ tbl_pos,
-                              int64_t s, int64_t* __restrict__ keys) {
+                              int64_t s, int64_t first,
+                              int64_t* __restrict__ keys) {
     int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n_q) return;
     int64_t c = cnt[i];
     if (c == 0) return;
     int64_t base = off_incl[i] - c;
     int64_t l = lo[i];
-    int64_t g = i * s;
+    int64_t g = (first + i) * s;
     for (int64_t j = 0; j < c; ++j) {
         int64_t r = l + j;
         keys[base + j] = (tbl_p[r] << 32) | (g - tbl_pos[r]);
@@ -92,12 +95,12 @@ extern "C" int ct_lookup(const void* tbl, int64_t n_tbl, const void* q,
 extern "C" int ct_expand(const void* lo, const void* cnt,
                          const void* off_incl, int64_t n_q,
                          const void* tbl_p, const void* tbl_pos, int64_t s,
-                         void* keys, void* stream) {
+                         int64_t first, void* keys, void* stream) {
     if (n_q > 0) {
         expand_kernel<<<ct_blocks(n_q, 256), 256, 0, ct_stream(stream)>>>(
             (const int64_t*)lo, (const int64_t*)cnt,
             (const int64_t*)off_incl, n_q, (const int64_t*)tbl_p,
-            (const int64_t*)tbl_pos, s, (int64_t*)keys);
+            (const int64_t*)tbl_pos, s, first, (int64_t*)keys);
     }
     return (int)cudaGetLastError();
 }

@@ -12,6 +12,15 @@ come from the tolerant model's unmerged span scan (ops/scan_sparse) on
 the same device, merged there per (probe, strand).  There is no
 size-based route to a host scan and no fallback: a failing scan raises.
 
+With `mesh` (a parallel.mesh.Mesh led by `device`), every searcher the
+filter builds gets it: the design scan splits its hashing, lookup and
+verification over the places, and the span scan its verification.  As
+in catch_tpu, the filter itself never reaches the sharded solver: the
+host route solves on the host, and CATCH_TPU_SOLVE=device solves on the
+lead whatever the mesh.  The caller still holds one lock around the
+whole filter call, so design_large's group threads take turns on the
+mesh as they do on one device.
+
 Not ported yet: custom cover functions (ROADMAP queue 1, item 12).
 """
 
@@ -60,17 +69,22 @@ class SetCoverFilter(BaseFilter):
                  custom_cover_range_tolerant_fn=None, identify=False,
                  avoided_genomes=(), coverage=1.0, cover_extension=0,
                  kmer_probe_map_k=20, kmer_probe_map_use_native_dict=False,
-                 *, device):
+                 *, device, mesh=None):
         """Args follow catch_tpu's SetCoverFilter;
         kmer_probe_map_use_native_dict is accepted for compatibility and
         ignored.  `device` (a name or a torch.device) is where the scans
-        run, checked by device.resolve_device."""
+        run, checked by device.resolve_device; `mesh`, if given, must be
+        led by it."""
         if (custom_cover_range_fn is not None
                 or custom_cover_range_tolerant_fn is not None):
             raise NotImplementedError(
                 "custom cover functions are not ported to catch_tpu_torch "
                 "yet (ROADMAP queue 1, item 12)")
         self.device = resolve_device(device)
+        if mesh is not None and mesh.lead != self.device:
+            raise ValueError(f"the mesh is led by {mesh.lead}, the filter "
+                             f"runs on {self.device}")
+        self.mesh = mesh
         self.model = CoverModel(mismatches, lcf_thres, island_of_exact_match)
         if not mismatches_tolerant:
             mismatches_tolerant = mismatches
@@ -98,7 +112,8 @@ class SetCoverFilter(BaseFilter):
     def _prepare_scan(self, candidate_probes, target_genomes):
         """Searcher + flattened corpus bookkeeping."""
         searcher = ProbeSearcher(candidate_probes, self.model,
-                                 kmer_probe_map_k=self.kmer_probe_map_k)
+                                 kmer_probe_map_k=self.kmer_probe_map_k,
+                                 mesh=self.mesh)
         # Reference semantics: later duplicates take the id
         probe_id = {}
         for i, p in enumerate(candidate_probes):
@@ -168,7 +183,8 @@ class SetCoverFilter(BaseFilter):
         if need_searcher:
             searcher = ProbeSearcher(
                 candidate_probes, self.tolerant_model,
-                kmer_probe_map_k=self.kmer_probe_map_k, device=self.device)
+                kmer_probe_map_k=self.kmer_probe_map_k, device=self.device,
+                mesh=self.mesh)
             probe_row = {p: i for i, p in enumerate(searcher.probes)}
             pid_of = np.array(
                 [probe_row[p] for p in candidate_probes], dtype=np.int64)
@@ -269,6 +285,8 @@ class SetCoverFilter(BaseFilter):
         profiling.add_phase("set_cover:solve", time.time() - t0)
         stats["set_cover_picks"] += len(chosen)
         stats["candidates_evaluated"] += searcher.stats["candidates"]
+        if "launches_by_place" in searcher.stats:
+            stats["launches_by_place"] = searcher.stats["launches_by_place"]
         return np.asarray(chosen, dtype=np.int64)
 
     def _filter(self, input, target_genomes_grouped):

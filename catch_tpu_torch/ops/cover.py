@@ -78,10 +78,11 @@ class ProbeSearcher:
     Fields read by ops/scan_instance.py: probes, probe_lens, k_seed,
     seed_mode, alphabet, probe_codes, Lmax, lcf_static, K_static,
     fast_ok and stats; ops/scan_sparse.py also reads the join table
-    (_join_h, _join_p, _join_pos, _join_kw) and device.
+    (_join_h, _join_p, _join_pos, _join_kw) and device; both read mesh.
     """
 
-    def __init__(self, probes, model, kmer_probe_map_k=20, *, device=None):
+    def __init__(self, probes, model, kmer_probe_map_k=20, *, device=None,
+                 mesh=None):
         """
         Args:
             probes: list of catch_tpu_torch.probe.Probe
@@ -90,9 +91,14 @@ class ProbeSearcher:
                 (reference SetCoverFilter's kmer_probe_map_k)
             device: torch.device where find_probe_covers_flat and
                 find_probe_covers scan; they raise while it is None
+            mesh: optional parallel.mesh.Mesh led by `device`; with more
+                than one place, the scans spread their verification
+                (and the design scan its hashing and lookup) over the
+                places
         """
         self.model = model
         self.device = device
+        self.mesh = mesh
         self._join_h = None
         # Candidate pairs admitted to verification, for run statistics.
         self.stats = {"candidates": 0}

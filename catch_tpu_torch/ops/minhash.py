@@ -69,6 +69,7 @@ def _check_pair(qs, rs):
     return N, False
 
 
+@_build.on_own_device
 def minhash_dists(qs, rs):
     """float32 [Q, R] capped-union MinHash distances 1 - cap/N of every
     query row against every representative row, bitwise equal to
@@ -90,6 +91,7 @@ def minhash_dists(qs, rs):
 minhash_dists.launches = 0
 
 
+@_build.on_own_device
 def minhash_codes(qs, rs, cap_thr, cap_early):
     """uint8 [Q, R] adjacency codes: 0 where cap < cap_thr, 1 where
     cap >= cap_thr, 2 where also cap >= cap_early."""
@@ -110,6 +112,7 @@ def minhash_codes(qs, rs, cap_thr, cap_early):
 minhash_codes.launches = 0
 
 
+@_build.on_own_device
 def minhash_caps(qs, rs):
     """[Q, R] capped intersection counts, uint8 for N <= 255 and int32
     above (a count reaches N)."""
@@ -131,6 +134,7 @@ def minhash_caps(qs, rs):
 minhash_caps.launches = 0
 
 
+@_build.on_own_device
 def minhash_assign(qs, rs, n_reps, cap_thr):
     """Best representative among the first n_reps rows of rs for every
     query: (int64 [Q] index of the largest cap, first on ties; bool [Q]
@@ -222,6 +226,7 @@ def _minhash_assign_plain(qs, rs, n_reps, cap_thr):
 # K8 minhash_sig
 # ----------------------------------------------------------------------
 
+@_build.on_own_device
 def minhash_sig(codes, ab):
     """int32 [U, H] MinHash signature matrix: entry (u, h) is the least
     (a_h * codes[u, j] + b_h) mod (2^31 - 1) over j.

@@ -49,6 +49,15 @@ hierarchical merges.  Every stage runs once over the whole
 corpus; 64-bit indices throughout replace the int32 limits, and the
 bounds that remain (32-bit fields of the packed sort keys) raise.
 
+With a mesh of more than one place on the searcher (ProbeSearcher(...,
+mesh=)), stages A, B and C are split over the places by contiguous
+ranges (_run_pipeline) where catch_tpu round-robins its slabs, hit
+subranges and candidate chunks (catch_tpu/ops/scan_instance.py
+:887-915, :980-1001, :1050-1057); the lead deduplicates the places'
+pairs once more (dedup_pairs: K2's sort and compaction alone), and the
+merges and everything after them run on the lead; the result is the
+same at every mesh size.
+
 Every kernel wrapper runs its plain-PyTorch twin (same module, name
 suffixed _plain) for CPU tensors and its kernel for CUDA tensors, and
 counts its kernel launches in an integer attribute `launches`.
@@ -65,7 +74,7 @@ from catch_tpu_torch.utils import profiling
 
 __all__ = ["scan_to_boundary_instance", "instance_to_host",
            "ensure_assembled", "rolling_hash", "lookup_expand",
-           "verify_windows", "segmented_merge", "pack_merged",
+           "dedup_pairs", "verify_windows", "segmented_merge", "pack_merged",
            "unpack_merged", "assemble", "KERNELS"]
 
 # 32-bit rolling-hash multiplier (odd; golden ratio) and sentinel, as in
@@ -109,6 +118,7 @@ def _mul_mod32(h, m):
 # K1 rolling_hash (stages T and A)
 # ----------------------------------------------------------------------
 
+@_build.on_own_device
 def rolling_hash(codes, n_out, stride, kj, last_pos):
     """Clamped 32-bit rolling hashes of kj codes at positions i * stride.
 
@@ -179,13 +189,15 @@ def build_table(codes, kj):
 # K2 lookup_expand (stage B)
 # ----------------------------------------------------------------------
 
-def lookup_expand(tbl_h, tbl_p, tbl_pos, q, s):
+@_build.on_own_device
+def lookup_expand(tbl_h, tbl_p, tbl_pos, q, s, sample0=0):
     """Deduplicated (probe, alignment) pairs of the sample hashes.
 
-    Sample g (corpus position g * s) matches every table row with its
-    hash; a match with (probe p, offset pos) is the pair
-    (p, g * s - pos).  Returns (p, a) int64, sorted by (p, a), without
-    duplicates.
+    Sample g of q is corpus sample sample0 + g (corpus position
+    (sample0 + g) * s); it matches every table row with its hash; a
+    match with (probe p, offset pos) is the pair
+    (p, (sample0 + g) * s - pos).
+    Returns (p, a) int64, sorted by (p, a), without duplicates.
 
     Replaces catch_tpu/ops/scan_instance.py _lookup_jit (:217-272),
     _expand_hits_jit (:293-338) and _dedup_pairs_jit (:341-360); the
@@ -196,7 +208,7 @@ def lookup_expand(tbl_h, tbl_p, tbl_pos, q, s):
                     (tbl_pos, "tbl_pos"), (q, "q")):
         _require(t, torch.int64, name)
     if _on_cpu(tbl_h, tbl_p, tbl_pos, q):
-        return _lookup_expand_plain(tbl_h, tbl_p, tbl_pos, q, s)
+        return _lookup_expand_plain(tbl_h, tbl_p, tbl_pos, q, s, sample0)
     dev = q.device
     n_q, n_tbl = q.numel(), tbl_h.numel()
     empty = torch.empty(0, dtype=torch.int64, device=dev)
@@ -214,11 +226,27 @@ def lookup_expand(tbl_h, tbl_p, tbl_pos, q, s):
     keys = torch.empty(total, dtype=torch.int64, device=dev)
     _build.check(lib.ct_expand(
         _build.ptr(lo), _build.ptr(cnt), _build.ptr(off), n_q,
-        _build.ptr(tbl_p), _build.ptr(tbl_pos), s, _build.ptr(keys),
+        _build.ptr(tbl_p), _build.ptr(tbl_pos), s, sample0,
+        _build.ptr(keys),
         stream), "expand")
     lookup_expand.launches += 1
+    return _unique_pairs(keys)
+
+
+lookup_expand.launches = 0
+
+
+def _unique_pairs(keys):
+    """(p, a) of the distinct packed keys p * 2^32 + a on a CUDA device,
+    sorted: torch.sort, then the compaction kernels of
+    csrc/lookup_expand.cu."""
+    dev = keys.device
+    total = keys.numel()
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
     if total == 0:
         return empty, empty.clone()
+    lib = _build.library()
+    stream = _build.stream_of(keys)
     keys = torch.sort(keys, stable=True).values
     flags = torch.empty(total, dtype=torch.int64, device=dev)
     _build.check(lib.ct_unique_flags(_build.ptr(keys), total,
@@ -234,7 +262,37 @@ def lookup_expand(tbl_h, tbl_p, tbl_pos, q, s):
     return p, a
 
 
-lookup_expand.launches = 0
+@_build.on_own_device
+def dedup_pairs(p, a):
+    """The distinct (p, a) pairs of int64 p and a in [0, 2^31), sorted
+    by (p, a): the dedup of lookup_expand once more, over the pairs that
+    several calls found (the mesh-split scan's sample ranges can find
+    one pair twice).
+
+    Replaces catch_tpu/ops/scan_instance.py _dedup_pairs_jit (:341-360)
+    where it runs apart from the expansion; the kernels are the
+    compaction pair of csrc/lookup_expand.cu (store bound), the sort is
+    torch.sort.
+    """
+    _require(p, torch.int64, "p")
+    _require(a, torch.int64, "a")
+    if p.shape != a.shape:
+        raise ValueError("p and a must have one shape")
+    if _on_cpu(p, a):
+        return _dedup_pairs_plain(p, a)
+    keys = (p << 32) | a
+    if keys.numel():
+        dedup_pairs.launches += 1
+    return _unique_pairs(keys)
+
+
+dedup_pairs.launches = 0
+
+
+def _dedup_pairs_plain(p, a):
+    """Plain-PyTorch twin of dedup_pairs."""
+    keys = torch.unique((p << 32) | a)
+    return keys >> 32, keys & _MASK32
 
 
 def lookup_ranges_plain(tbl_h, q):
@@ -245,7 +303,7 @@ def lookup_ranges_plain(tbl_h, q):
     return lo, torch.where(q == HMAX, torch.zeros_like(lo), hi - lo)
 
 
-def _lookup_expand_plain(tbl_h, tbl_p, tbl_pos, q, s):
+def _lookup_expand_plain(tbl_h, tbl_p, tbl_pos, q, s, sample0=0):
     """Plain-PyTorch twin of lookup_expand."""
     lo, cnt = lookup_ranges_plain(tbl_h, q)
     sample = torch.repeat_interleave(
@@ -253,7 +311,7 @@ def _lookup_expand_plain(tbl_h, tbl_p, tbl_pos, q, s):
     first = (torch.cumsum(cnt, 0) - cnt)[sample]
     r = lo[sample] + torch.arange(sample.numel(), dtype=torch.int64,
                                   device=q.device) - first
-    keys = (tbl_p[r] << 32) | (sample * s - tbl_pos[r])
+    keys = (tbl_p[r] << 32) | ((sample0 + sample) * s - tbl_pos[r])
     keys = torch.unique_consecutive(torch.sort(keys, stable=True).values)
     return keys >> 32, keys & _MASK32
 
@@ -262,6 +320,7 @@ def _lookup_expand_plain(tbl_h, tbl_p, tbl_pos, q, s):
 # K3 verify_windows (stage C)
 # ----------------------------------------------------------------------
 
+@_build.on_own_device
 def verify_windows(mega, codes, lens, pc, ac, seq_starts, seq_ends,
                    seq_lens, chrom_off, univ_of_seq, *, K, k_seed, lcf,
                    seed_req, fast_ok, ext, nU):
@@ -449,6 +508,7 @@ def windows_plain(mega, codes, p, a, start, ov, thres, n_seq, *, K, k_seed,
 _MERGE_BLOCK = 1024   # rows per block scan (CT_MB in the kernel)
 
 
+@_build.on_own_device
 def segmented_merge(key, start, end):
     """Merge overlapping or touching [start, end) spans per key.
 
@@ -533,6 +593,7 @@ def pack_width(max_pos):
     return 2 if max_pos <= 0xFFFF else (3 if max_pos <= 0xFFFFFF else 4)
 
 
+@_build.on_own_device
 def pack_merged(key, start, end, b_pos):
     """The merged rows packed for readback.
 
@@ -633,6 +694,7 @@ def unpack_merged(packed, esc_idx, esc_key, esc_end, b_pos):
 # K10 assemble (stage E)
 # ----------------------------------------------------------------------
 
+@_build.on_own_device
 def assemble(key, start, end, offsets, n_sets):
     """The device solver's boundary-indexed arrays of the merged rows.
 
@@ -720,6 +782,7 @@ def _assemble_plain(key, start, end, offsets, n_sets):
 KERNELS = {
     "rolling_hash": rolling_hash,
     "lookup_expand": lookup_expand,
+    "dedup_pairs": dedup_pairs,
     "verify_windows": verify_windows,
     "segmented_merge": segmented_merge,
     "pack_merged": pack_merged,
@@ -787,18 +850,60 @@ def scan_to_boundary_instance(searcher, sequences, seq_univ, chrom_off,
     island = model.island_of_exact_match
     seed_req = max(k_seed, island) if island > 0 else k_seed
     kj, s = join_params_stride(searcher)
+    places = scan_places(searcher, device)
     state, total, perm = prepare_corpus(searcher, sequences, seq_univ,
                                         chrom_off, pid_of, device)
+    # The lead holds the corpus and probe rows; every other place gets
+    # a replica.
+    replicas = [state] + [{k: v.to(p, copy=True) for k, v in state.items()}
+                          for p in places[1:]]
     # Largest universe-local coordinate a span can carry (spans are
     # clamped to chrom_off + seq_len): sizes the packed start field.
     max_pos = int((np.asarray(chrom_off, dtype=np.int64)
                    + np.asarray(seq_len, dtype=np.int64)).max()) \
         if len(sequences) else 0
     _mark(searcher, device, "setup", t0)
-    dev = _run_pipeline(searcher, device, state, total, kj, s, K, k_seed,
+    dev = _run_pipeline(searcher, places, replicas, total, kj, s, K, k_seed,
                         seed_req, nU, int(cover_extension), universe_p,
                         pack_width(max_pos))
     return dev, perm
+
+
+def scan_places(searcher, device):
+    """The places a scan of `searcher` on `device` runs on: the places
+    of the searcher's mesh when it has more than one, led by `device`,
+    else `device` alone."""
+    mesh = getattr(searcher, "mesh", None)
+    if mesh is None or mesh.size <= 1:
+        return (device,)
+    if mesh.lead != device:
+        raise ValueError(f"the mesh is led by {mesh.lead}, the scan runs on "
+                         f"{device}")
+    return mesh.places
+
+
+def split_range(n, parts):
+    """Bounds of `parts` contiguous ranges of 0..n, as even as can be."""
+    return [n * i // parts for i in range(parts + 1)]
+
+
+def join_on(device, parts):
+    """The places' result tuples joined on `device` in place order, one
+    tensor per column; one place's result is handed on as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat([x.to(device) for x in col])
+                 for col in zip(*parts))
+
+
+def on_place(searcher, d, fn, *args, **kwargs):
+    """fn(*args, **kwargs) for place d, with the kernel launches it made
+    booked under searcher.stats["launches_by_place"][d][fn's name]."""
+    before = fn.launches
+    out = fn(*args, **kwargs)
+    by = searcher.stats.setdefault("launches_by_place", {}).setdefault(d, {})
+    by[fn.__name__] = by.get(fn.__name__, 0) + fn.launches - before
+    return out
 
 
 def prepare_corpus(searcher, sequences, seq_univ, chrom_off, pid_of,
@@ -848,41 +953,77 @@ def prepare_corpus(searcher, sequences, seq_univ, chrom_off, pid_of,
     return state, total, perm
 
 
-def _mark(searcher, device, key, t0, prefix="scan"):
-    """Book wall time since t0 as phase <prefix>:<key>, after the device
-    has finished the phase's work."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.time() - t0
-    phases = searcher.stats.setdefault("phase_seconds", {})
-    phases[key] = phases.get(key, 0.0) + dt
-    profiling.add_phase(f"{prefix}:{key}", dt)
+def _mark_places(places, phase, t0):
+    """Book wall time since t0 as `phase`, after every CUDA device among
+    `places` has finished its work; returns the time now."""
+    for dev in set(places):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    profiling.add_phase(phase, time.time() - t0)
     return time.time()
 
 
-def _run_pipeline(searcher, device, st, total, kj, s, K, k_seed, seed_req,
-                  nU, ext, universe_p, b_pos):
+def _mark(searcher, device, key, t0, prefix="scan"):
+    """Book wall time since t0 as phase <prefix>:<key> (and under
+    searcher.stats), after `device` and every place of the searcher's
+    mesh have finished the phase's work."""
+    mesh = getattr(searcher, "mesh", None)
+    now = _mark_places(
+        (device, *(mesh.places if mesh is not None else ())),
+        f"{prefix}:{key}", t0)
+    phases = searcher.stats.setdefault("phase_seconds", {})
+    phases[key] = phases.get(key, 0.0) + now - t0
+    return now
+
+
+def _run_pipeline(searcher, places, replicas, total, kj, s, K, k_seed,
+                  seed_req, nU, ext, universe_p, b_pos):
+    """Stages T to D over `places` (one, or the places of a mesh), place
+    d reading replicas[d].  The table is built once on the lead and
+    replicated; each place hashes and looks up a contiguous range of
+    the samples (stages A, B); the pairs are joined on the lead,
+    deduplicated once more over all ranges (samples of two ranges can
+    find one pair) and cut into contiguous blocks; each place verifies
+    its block (stage C); the spans are joined on the lead in block
+    order, where the merges run.  The result does not depend on the
+    number of places."""
+    device, n = places[0], len(places)
     t0 = time.time()
     # Stage T + A: probe table and strided corpus hashes.
-    tbl_h, tbl_p, tbl_pos = build_table(st["codes"], kj)
+    table = build_table(replicas[0]["codes"], kj)
+    tables = [table] + [tuple(x.to(p, copy=True) for x in table)
+                        for p in places[1:]]
     n_samples = -(-total // s)
-    q = rolling_hash(st["mega"], n_samples, s, kj, total - kj)
+    ranges = split_range(n_samples, n)
+    qs = [on_place(searcher, d, rolling_hash, st["mega"][g0 * s:], g1 - g0,
+                   s, kj, total - kj - g0 * s)
+          for d, (st, g0, g1) in enumerate(zip(replicas, ranges, ranges[1:]))]
     t0 = _mark(searcher, device, "table_and_hash", t0)
 
     # Stage B: deduplicated (probe, alignment) pairs, sorted by probe
     # row, which is candidate-id order.
-    pc, ac = lookup_expand(tbl_h, tbl_p, tbl_pos, q, s)
-    del tbl_h, tbl_p, tbl_pos, q
+    pairs = [on_place(searcher, d, lookup_expand, *tables[d], qs[d], s,
+                      sample0=ranges[d]) for d in range(n)]
+    pc, ac = join_on(device, pairs)
+    if n > 1:
+        pc, ac = dedup_pairs(pc, ac)
+    del table, tables, qs, pairs
     searcher.stats["candidates"] += int(pc.numel())
     t0 = _mark(searcher, device, "join_expand", t0)
 
-    # Stage C: cover spans.
-    key, us, ue = verify_windows(
-        st["mega"], st["codes"], st["lens"], pc, ac, st["seq_starts"],
-        st["seq_ends"], st["seq_lens"], st["chrom_off"], st["univ_of_seq"],
-        K=K, k_seed=k_seed, lcf=int(searcher.lcf_static), seed_req=seed_req,
-        fast_ok=bool(searcher.fast_ok), ext=ext, nU=nU)
-    del pc, ac
+    # Stage C: cover spans, a block of pairs per place.
+    blocks = split_range(pc.numel(), n)
+    spans = []
+    for d, (st, c0, c1) in enumerate(zip(replicas, blocks, blocks[1:])):
+        spans.append(on_place(
+            searcher, d, verify_windows, st["mega"], st["codes"], st["lens"],
+            pc[c0:c1].to(places[d]), ac[c0:c1].to(places[d]),
+            st["seq_starts"], st["seq_ends"], st["seq_lens"],
+            st["chrom_off"], st["univ_of_seq"], K=K, k_seed=k_seed,
+            lcf=int(searcher.lcf_static), seed_req=seed_req,
+            fast_ok=bool(searcher.fast_ok), ext=ext, nU=nU))
+    key, us, ue = join_on(device, spans)
+    del pc, ac, spans
     t0 = _mark(searcher, device, "verify", t0)
 
     # Stage D: per-pair merge over all spans at once, then the

@@ -26,9 +26,14 @@ power-of-two shape buckets, the int32 fields and the None return above
 them, the fixed output caps and their overflow retries, and the
 CATCH_TPU_JOIN=host mirror.  There is no fallback: a failing scan raises.
 
+With a mesh of more than one place on the searcher, step 5 runs as
+verify_spans_sharded: a contiguous block of the kept pairs per place,
+each against that place's replica of the corpus and the probe rows
+(catch_tpu's _verify_chunk_sharded); steps 1 to 4 run on the lead.
+
 Every kernel wrapper runs its plain-PyTorch twin (same module, name
 suffixed _plain) for CPU tensors and its kernel for CUDA tensors, and
-counts its kernel launches in an integer attribute `launches`.  Both
+counts its kernel launches in an integer attribute `launches`.  The
 wrappers are registered in scan_instance.KERNELS.
 """
 
@@ -42,7 +47,7 @@ from catch_tpu_torch.ops import encode
 from catch_tpu_torch.ops import scan_instance as si
 
 __all__ = ["scan_corpus_sparse", "scan_spans", "expand_join",
-           "verify_spans"]
+           "verify_spans", "verify_spans_sharded"]
 
 # Hash slab width (corpus positions per slab) bounding host memory for
 # the corpus-wide rolling hash (u64 hashes = 8 B/position).
@@ -63,6 +68,7 @@ _KEY_MASK = (1 << _KEY_SHIFT) - 1
 # K5 expand_join
 # ----------------------------------------------------------------------
 
+@_build.on_own_device
 def expand_join(lo, cnt, pos, join_p, join_pos, lmax):
     """Deduplicated (probe, alignment) pairs of join hits.
 
@@ -142,6 +148,45 @@ def _expand_join_plain(lo, cnt, pos, join_p, join_pos, lmax):
 # K6 verify_spans
 # ----------------------------------------------------------------------
 
+def _check_spans_args(mega, codes, cand, K):
+    si._require(mega, torch.uint8, "mega")
+    si._require(codes, torch.uint8, "codes")
+    for t, name in zip(cand, ("pg", "start", "poff0", "ov", "thres",
+                              "n_seq")):
+        si._require(t, torch.int64, name)
+    if codes.dim() != 2 or len({t.numel() for t in cand}) > 1:
+        raise ValueError("codes must be [P, L] and the six candidate "
+                         "tensors of equal lengths")
+    if not 0 <= K <= si._KMAX:
+        raise ValueError(f"mismatches K={K} is outside [0, {si._KMAX}]")
+
+
+def _launch_verify_spans(mega, codes, cand, K, k_seed, seed_req, fast_ok):
+    """The count and emit launches of csrc/verify_windows.cu's span
+    kernel over CUDA tensors of one device."""
+    dev = cand[0].device
+    n = cand[0].numel()
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
+    if n == 0:
+        return empty, empty.clone(), empty.clone()
+    lib = _build.library()
+    stream = _build.stream_of(cand[0])
+    common = [_build.ptr(t) for t in (mega, codes) + tuple(cand)] + [
+        n, codes.shape[1], K, k_seed, seed_req, int(bool(fast_ok))]
+    counts = torch.empty(n, dtype=torch.int64, device=dev)
+    _build.check(lib.ct_verify_spans_count(*common, _build.ptr(counts),
+                                           stream), "verify_spans_count")
+    off = torch.cumsum(counts, 0)
+    total = int(off[-1])
+    out = [torch.empty(total, dtype=torch.int64, device=dev)
+           for _ in range(3)]
+    _build.check(lib.ct_verify_spans_emit(
+        *common, _build.ptr(off), *[_build.ptr(x) for x in out], stream),
+        "verify_spans_emit")
+    return tuple(out)
+
+
+@_build.on_own_device
 def verify_spans(mega, codes, pg, start, poff0, ov, thres, n_seq, *, K,
                  k_seed, seed_req, fast_ok):
     """Unmerged cover spans of the kept candidate pairs.
@@ -165,44 +210,61 @@ def verify_spans(mega, codes, pg, start, poff0, ov, thres, n_seq, *, K,
     (:65-154); the kernel is csrc/verify_windows.cu, bound by the 2 x L
     bytes each candidate reads.
     """
-    si._require(mega, torch.uint8, "mega")
-    si._require(codes, torch.uint8, "codes")
     cand = (pg, start, poff0, ov, thres, n_seq)
-    for t, name in zip(cand, ("pg", "start", "poff0", "ov", "thres",
-                              "n_seq")):
-        si._require(t, torch.int64, name)
-    if codes.dim() != 2 or len({t.numel() for t in cand}) > 1:
-        raise ValueError("codes must be [P, L] and the six candidate "
-                         "tensors of equal lengths")
-    if not 0 <= K <= si._KMAX:
-        raise ValueError(f"mismatches K={K} is outside [0, {si._KMAX}]")
+    _check_spans_args(mega, codes, cand, K)
     args = dict(K=K, k_seed=k_seed, seed_req=seed_req, fast_ok=fast_ok)
     if si._on_cpu(mega, codes, *cand):
         return _verify_spans_plain(mega, codes, *cand, **args)
-    dev = pg.device
-    n = pg.numel()
-    empty = torch.empty(0, dtype=torch.int64, device=dev)
-    if n == 0:
-        return empty, empty.clone(), empty.clone()
-    lib = _build.library()
-    stream = _build.stream_of(pg)
-    common = [_build.ptr(t) for t in (mega, codes) + cand] + [
-        n, codes.shape[1], K, k_seed, seed_req, int(bool(fast_ok))]
-    counts = torch.empty(n, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_verify_spans_count(*common, _build.ptr(counts),
-                                           stream), "verify_spans_count")
-    off = torch.cumsum(counts, 0)
-    total = int(off[-1])
-    out = [torch.empty(total, dtype=torch.int64, device=dev)
-           for _ in range(3)]
-    _build.check(lib.ct_verify_spans_emit(
-        *common, _build.ptr(off), *[_build.ptr(x) for x in out], stream),
-        "verify_spans_emit")
-    verify_spans.launches += 1
-    return tuple(out)
+    out = _launch_verify_spans(mega, codes, cand, **args)
+    if pg.numel():
+        verify_spans.launches += 1
+    return out
 
 
 verify_spans.launches = 0
+
+
+def verify_spans_sharded(replicas, pg, start, poff0, ov, thres, n_seq, *, K,
+                         k_seed, seed_req, fast_ok):
+    """verify_spans over the places of a mesh.
+
+    replicas: one (mega, codes) pair per place, each on its place; the
+    six candidate tensors lie on the first place (the lead).  The
+    candidates are cut into contiguous blocks, one per place; place d
+    verifies its block against its replica, counting and then emitting
+    into its own buffers, and the buffers are joined on the lead in
+    block order, which is verify_spans' order.  A place whose block is
+    empty launches nothing.
+
+    Returns (p, start, end) int64 on the lead, equal to verify_spans'.
+
+    Replaces catch_tpu/ops/scan_sparse.py _verify_chunk_sharded
+    (:157-189), without its fixed block and output shapes; the kernel is
+    csrc/verify_windows.cu's span kernel, launched once per place.
+    """
+    cand = (pg, start, poff0, ov, thres, n_seq)
+    args = dict(K=K, k_seed=k_seed, seed_req=seed_req, fast_ok=fast_ok)
+    lead = pg.device
+    if not replicas or replicas[0][0].device != lead:
+        raise ValueError("the candidates must lie on the first place")
+    blocks = si.split_range(pg.numel(), len(replicas))
+    outs = []
+    for (mega, codes), c0, c1 in zip(replicas, blocks, blocks[1:]):
+        place = mega.device
+        block = tuple(t[c0:c1].to(place) for t in cand)
+        _check_spans_args(mega, codes, block, K)
+        if si._on_cpu(mega, codes, *block):
+            out = _verify_spans_plain(mega, codes, *block, **args)
+        else:
+            with torch.cuda.device(place):
+                out = _launch_verify_spans(mega, codes, block, **args)
+            if c1 > c0:
+                verify_spans_sharded.launches += 1
+        outs.append(out)
+    return si.join_on(lead, outs)
+
+
+verify_spans_sharded.launches = 0
 
 
 def _verify_spans_plain(mega, codes, pg, start, poff0, ov, thres, n_seq,
@@ -224,7 +286,8 @@ def _verify_spans_plain(mega, codes, pg, start, poff0, ov, thres, n_seq,
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
-si.KERNELS.update(expand_join=expand_join, verify_spans=verify_spans)
+si.KERNELS.update(expand_join=expand_join, verify_spans=verify_spans,
+                  verify_spans_sharded=verify_spans_sharded)
 
 
 # ----------------------------------------------------------------------
@@ -416,9 +479,17 @@ def scan_spans(searcher, sequences, device):
     if cand[0].numel() == 0:
         return empty
 
-    sp_p, sp_s, sp_e = verify_spans(
-        _put(mega, device), _put(searcher.probe_codes, device), *cand,
-        **vargs)
+    places = si.scan_places(searcher, device)
+    if len(places) > 1:
+        # each place verifies a block of the candidates against its own
+        # replica of the corpus and the probe rows
+        sp_p, sp_s, sp_e = verify_spans_sharded(
+            [(_put(mega, p), _put(searcher.probe_codes, p)) for p in places],
+            *cand, **vargs)
+    else:
+        sp_p, sp_s, sp_e = verify_spans(
+            _put(mega, device), _put(searcher.probe_codes, device), *cand,
+            **vargs)
     sidx = torch.clamp(torch.searchsorted(ends_t, sp_s, side="right"),
                        max=ends_t.numel() - 1)
     base = starts_t[sidx]

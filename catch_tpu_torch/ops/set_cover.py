@@ -46,6 +46,7 @@ from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.ops import scan_instance as si
 
 __all__ = ["SetCoverInstance", "solve_instance", "solve_boundary_instance",
+           "check_instance_axis",
            "assembled_instance", "build_instance_from_cover_arrays",
            "init_covered", "greedy_steps_v2", "greedy_steps_v1",
            "initial_state"]
@@ -481,6 +482,7 @@ def _scratch(dev, U, P, S):
 # K11 init_covered
 # ----------------------------------------------------------------------
 
+@_build.on_own_device
 def init_covered(ivl_start, ivl_end, U):
     """bool[U]: True where no interval [ivl_start, ivl_end) lies, the
     solver's initial coverage.  ivl_start, ivl_end: int32 global
@@ -524,6 +526,7 @@ def _init_covered_plain(ivl_start, ivl_end, U):
 # K12 greedy_v2 and K13 greedy_v1
 # ----------------------------------------------------------------------
 
+@_build.on_own_device
 def greedy_steps_v2(state, consts, n_steps):
     """Run n_steps greedy steps on a boundary-indexed instance.
 
@@ -571,6 +574,7 @@ def greedy_steps_v2(state, consts, n_steps):
 greedy_steps_v2.launches = 0
 
 
+@_build.on_own_device
 def greedy_steps_v1(state, consts, n_steps):
     """Run n_steps greedy steps on an instance given by segment ids.
 
@@ -810,16 +814,22 @@ def assembled_instance(inst, device):
                                inst.n_rank_vals, inst.cost)
 
 
-def _instance_consts(inst, device):
-    """The K13 instance arrays of a host SetCoverInstance on `device`,
-    with u_size; raises where the position axis does not fit int32 or an
-    interval leaves it (the kernels index the axis without a check)."""
+def check_instance_axis(inst):
+    """Raise where the position axis of a host SetCoverInstance does not
+    fit int32 or an interval leaves it (the kernels index the axis
+    without a check)."""
     if inst.u_len >= np.iinfo(np.int32).max:
         raise ValueError(f"global position axis of {inst.u_len} positions "
                          "does not fit the solver's int32 coordinates")
     if len(inst.ivl_start) and (np.min(inst.ivl_start) < 0
                                 or np.max(inst.ivl_end) > inst.u_len):
         raise ValueError("an interval lies outside the position axis")
+
+
+def _instance_consts(inst, device):
+    """The K13 instance arrays of a host SetCoverInstance on `device`,
+    with u_size; check_instance_axis's conditions raise."""
+    check_instance_axis(inst)
 
     def put(x, dtype):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
@@ -864,7 +874,7 @@ def _solve_device(inst, device):
                            _dispatch_bound(inst.n_sets, inst.n_rank_vals))
 
 
-def solve_instance(inst, force_device=False, device=None):
+def solve_instance(inst, force_device=False, device=None, mesh=None):
     """Solve a canonicalized instance; returns dense set indices in pick
     order (np.int32 array).
 
@@ -874,13 +884,19 @@ def solve_instance(inst, force_device=False, device=None):
     which catch_tpu.ops.set_cover.solve_instance runs for tiny
     instances; so the port's picks equal catch_tpu's at every size.
     With force_device, the K13 step solver runs on `device` (the card
-    unless the caller names the CPU), with the same picks; a failure
-    raises.
+    unless the caller names the CPU) or, given a `mesh` of more than
+    one place, the sharded solver on the mesh
+    (parallel/set_cover.solve_instance_sharded), with the same picks; a
+    failure raises.  Without force_device the mesh is not used, as in
+    catch_tpu.
     """
     if inst.n_sets == 0 or inst.u_len == 0 or len(inst.ivl_start) == 0:
         return np.empty(0, dtype=np.int32)
     if np.all(inst.can_uncover >= inst.u_size):
         return np.empty(0, dtype=np.int32)
+    if force_device and mesh is not None and mesh.size > 1:
+        from catch_tpu_torch.parallel.set_cover import solve_instance_sharded
+        return solve_instance_sharded(inst, mesh=mesh)
     if force_device:
         return _solve_device_steps(
             inst, resolve_device("cuda" if device is None else device))

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of catch_tpu_torch's design, span and design_large paths on one
-NVIDIA GPU.
+"""Smoke run of catch_tpu_torch's design, span, design_large, solver and
+mesh paths on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch, CUDA, nvcc and
      triton versions;
-  2. the build of the thirteen CUDA kernels from catch_tpu_torch/csrc/;
+  2. the build of the CUDA kernels from catch_tpu_torch/csrc/;
   3. the five design-scan kernels (pack_merged, the readback, among them)
      against their plain-PyTorch twins on the card, on the inputs the
      ebola175 design gives them: outputs
@@ -76,6 +76,31 @@ Phases (any failure exits non-zero and prints no result line):
      phase 15's instance, against their twins: exactly equal, the whole
      state included; CUDA-event medians, min and max.
 
+ 17. the device mesh, with CATCH_TPU_VIRTUAL_DEVICES=4 set for this
+     process (four places on the one card; restored after): ebola175 m2
+     as in phase 5 with --num-devices 4, on the host-solver route and
+     then with CATCH_TPU_SOLVE=device, counting launches: both FASTAs
+     must equal torch_ebola175_m2.fasta byte for byte, the candidates
+     evaluated and the picks must equal phase 5's, rolling_hash,
+     lookup_expand and verify_windows must have launched for every place
+     (the counts by place must add up to the totals) and dedup_pairs on
+     the lead;
+ 18. the span scan on the mesh: phase 7's identify and avoid goldens
+     with --num-devices 4, then phase 8's 100 Mbp avoid ranks through a
+     SetCoverFilter(mesh=make_mesh(4)): equal to avoid100m_ranks.tsv,
+     verify_spans_sharded launched and verify_spans not;
+ 19. the sharded solver: phase 15's solver instance and ebola175's host
+     instance (read back in phase 17) through solve_instance_sharded and
+     solve_instance(force_device=True, mesh=...) at 1, 2, 4 and 8 places:
+     every pick order must equal the host lazy solver's (and so phase
+     15's); each is timed;
+ 20. greedy_sharded on one 64-step dispatch of each instance at 4 places
+     and verify_spans_sharded on phase 6's inputs at 4 places against
+     their twins: exactly equal, every place's state included and all
+     replicas equal; dedup_pairs on the pairs that the four places of
+     phase 17's scan hand to the lead, against its twin and against one
+     torch.unique call; CUDA-event medians, min and max.
+
 Each phase prints its wall seconds as it ends.  The line before the
 last is the card's name and power limit; the one before it a JSON
 object with one entry per kernel entry point (times, launches on its
@@ -102,6 +127,7 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 REPLACES = {
     "rolling_hash": "catch_tpu/ops/scan_instance.py:129",
     "lookup_expand": "catch_tpu/ops/scan_instance.py:217",
+    "dedup_pairs": "catch_tpu/ops/scan_instance.py:341",
     "verify_windows": "catch_tpu/ops/scan_instance.py:382",
     "segmented_merge": "catch_tpu/ops/scan_instance.py:537",
     "pack_merged": "catch_tpu/ops/scan_instance.py:611",
@@ -116,14 +142,20 @@ REPLACES = {
     "init_covered": "catch_tpu/ops/set_cover.py:661",
     "greedy_v2": "catch_tpu/ops/set_cover.py:836",
     "greedy_v1": "catch_tpu/ops/set_cover.py:630",
+    "verify_spans_sharded": "catch_tpu/ops/scan_sparse.py:157",
+    "greedy_sharded": "catch_tpu/parallel/set_cover.py:114",
 }
 SOURCES = {name: f"catch_tpu_torch/csrc/{name}.cu" for name in REPLACES}
-SOURCES["verify_spans"] = "catch_tpu_torch/csrc/verify_windows.cu"
+for _name in ("verify_spans", "verify_spans_sharded"):
+    SOURCES[_name] = "catch_tpu_torch/csrc/verify_windows.cu"
 for _name in ("minhash_dists", "minhash_codes", "minhash_assign"):
     SOURCES[_name] = "catch_tpu_torch/csrc/minhash_caps.cu"
+SOURCES["dedup_pairs"] = "catch_tpu_torch/csrc/lookup_expand.cu"
 DESIGN_KERNELS = ["rolling_hash", "lookup_expand", "verify_windows",
                   "segmented_merge", "pack_merged"]
 SOLVER_KERNELS = ["assemble", "init_covered", "greedy_v2"]
+PLACE_KERNELS = ["rolling_hash", "lookup_expand", "verify_windows"]
+MESH_PLACES = 4
 
 # bench.py's solver-throughput instance (bench.py:178-198).
 SOLVER_N_SETS, SOLVER_N_UNIV, SOLVER_U_LEN = 100_000, 128, 8192
@@ -435,15 +467,23 @@ def compare(torch, cases, twin_reps=None):
     then CUDA-event medians, min and max of both (the twin over
     twin_reps calls, by default half the kernel's and at least 2),
     beside the bound of the case's (bytes, operations); returns the
-    JSON rows.  No single PyTorch call computes any of these functions,
-    so library_ms is null."""
+    JSON rows.  A case may end with a function of no arguments that
+    computes the same result by one PyTorch call; it is held to the
+    kernel's result and timed as library_ms, which is null where no
+    single call computes the function."""
     rows = []
-    for name, call, twin, kernel, reps, work in cases:
+    for name, call, twin, kernel, reps, work, *library in cases:
         got, want = call(kernel), call(twin)
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
         if err != 0:
             fail(f"{name}: kernel differs from its twin (max abs err {err})")
+        ms_lib = None
+        if library:
+            if max_abs_err(torch, library[0](), got) != 0:
+                fail(f"{name}: the library call differs from the kernel")
+            ms_lib = cuda_ms(torch, library[0], max(2, reps // 2))[0]
+            print(f"{name}: one PyTorch call {ms_lib:.3f} ms", flush=True)
         ms_k, lo_k, hi_k = cuda_ms(torch, lambda: call(kernel), reps)
         # the equality check just called the twin: with twin_reps given
         # that call is its warm-up
@@ -462,7 +502,7 @@ def compare(torch, cases, twin_reps=None):
                          max_abs_err=err, ms=ms_k, ms_min=lo_k, ms_max=hi_k,
                          plain_ms=ms_t, plain_ms_min=lo_t, plain_ms_max=hi_t,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None))
+                         library_ms=ms_lib))
     return rows
 
 
@@ -520,7 +560,11 @@ def check_span_kernels(torch, device, scf, cands, bg):
           f" spans; host join {host_s:.2f} s", flush=True)
     # K5: a store per hit; K6: a compare per aligned probe position.
     n_cand, n_spans = cand[0].numel(), k6(ss.verify_spans)[0].numel()
-    return compare(torch, [
+    # phase 20 verifies the same candidates over four places; they wait on
+    # the host meanwhile
+    keep = dict(mega=mega, codes=searcher.probe_codes,
+                cand=[x.cpu() for x in cand], vargs=vargs, n_spans=n_spans)
+    return keep, compare(torch, [
         ("expand_join", k5, ss._expand_join_plain, ss.expand_join, 10,
          (24 * len(lo) + 16 * join_p.numel() + 16 * p.numel(),
           int(cnt.sum()))),
@@ -610,9 +654,9 @@ class PhaseClock:
         self.t0 = now
 
 
-def identify_avoid_goldens(tag=""):
-    """Phases 7 and 14: the identify and avoid goldens through the CLI on
-    cuda."""
+def identify_avoid_goldens(tag="", extra=()):
+    """Phases 7, 14 and 18: the identify and avoid goldens through the CLI
+    on cuda (`extra`: more flags)."""
     for name, argv in (
             ("identify", ["identify_a.fasta", "identify_b.fasta", "-i",
                           "-c", "0.5"]),
@@ -622,7 +666,7 @@ def identify_avoid_goldens(tag=""):
         argv = [os.path.join(GOLDEN, a) if a.endswith(".fasta") else a
                 for a in argv]
         design(argv + ["-o", out, "-pl", "60", "-ps", "30", "-m", "0",
-                       "-e", "0", "--device", "cuda"])
+                       "-e", "0", "--device", "cuda"] + list(extra))
         golden = os.path.join(GOLDEN, f"ref_{name}_m0.fasta")
         if fasta_records(out) != fasta_records(golden):
             fail(f"{name} m0 probe set{tag} differs from {golden}")
@@ -955,7 +999,7 @@ def solver_bench(torch, si, profiling, device):
     """Phase 15: the four solvers on bench.py's instance, counting
     launches; every pick order must equal the host lazy solver's.  Each
     device solver runs twice (wall clock to a synchronised end).
-    Returns the instance and the launches."""
+    Returns the instance, the host's pick order and the launches."""
     import numpy as np
 
     from catch_tpu_torch.ops import set_cover as sct
@@ -1003,7 +1047,14 @@ def solver_bench(torch, si, profiling, device):
           f"memory {peak / 2**20:.1f} MiB", flush=True)
     require_launched(launches, SOLVER_KERNELS + ["greedy_v1"],
                      "the solver runs")
-    return inst, launches
+    return inst, want, launches
+
+
+def step_work(U, M, P, S, nU, ivl_bytes, pair_bytes):
+    """(bytes, operations) of one greedy step: `covered`, the prefix, and
+    the interval, pair, set and universe arrays once."""
+    return (U + 4 * (U + 1) + ivl_bytes * M + pair_bytes * P + 13 * S
+            + 8 * nU, U + M + P + S)
 
 
 def check_solver_kernels(torch, device, dev, inst):
@@ -1050,11 +1101,9 @@ def check_solver_kernels(torch, device, dev, inst):
     # arrays (pair_bounds, univ_of_pair) and set_bounds out.  K11: the intervals in, a byte a position out.
     # A greedy step: `covered`, the prefix, and the interval, pair, set
     # and universe arrays once.
-    def step(U, M, P, S, nU, ivl_bytes, pair_bytes):
-        return (U + 4 * (U + 1) + ivl_bytes * M + pair_bytes * P + 13 * S
-                + 8 * nU, U + M + P + S)
-    v2 = step(U, n, P, S, nU, 8, 8)
-    v1 = step(inst.u_len, M13, P13, inst.n_sets, inst.n_universes, 12, 8)
+    v2 = step_work(U, n, P, S, nU, 8, 8)
+    v1 = step_work(inst.u_len, M13, P13, inst.n_sets, inst.n_universes, 12,
+                   8)
     return compare(torch, [
         ("assemble", k10, si._assemble_plain, si.assemble, 10,
          (32 * n + 8 * (nU + 1) + 4 * (2 * P + 1) + 4 * (S + 1),
@@ -1066,6 +1115,279 @@ def check_solver_kernels(torch, device, dev, inst):
         ("greedy_v1", stepper(state13, consts), sct._greedy_steps_v1_plain,
          sct.greedy_steps_v1, 5, (n_steps * v1[0], n_steps * v1[1])),
     ])
+
+
+@contextlib.contextmanager
+def virtual_places(n):
+    """CATCH_TPU_VIRTUAL_DEVICES=n for the block: n places are visible on
+    the one card."""
+    before = os.environ.get("CATCH_TPU_VIRTUAL_DEVICES")
+    os.environ["CATCH_TPU_VIRTUAL_DEVICES"] = str(n)
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["CATCH_TPU_VIRTUAL_DEVICES"]
+        else:
+            os.environ["CATCH_TPU_VIRTUAL_DEVICES"] = before
+
+
+def mesh_design(torch, si, profiling, in175, stats5):
+    """Phase 17: ebola175 m2 through the CLI with --num-devices 4 on both
+    solver routes, counting launches.  Returns the host route's instance
+    (as instance_to_host read it back) and the last route's launches."""
+    kept = []
+    for route, ctx, needed in (
+            ("host solver", contextlib.nullcontext(),
+             DESIGN_KERNELS + ["dedup_pairs"]),
+            ("device solver", solve_on_device(),
+             [k for k in DESIGN_KERNELS if k != "pack_merged"]
+             + SOLVER_KERNELS + ["dedup_pairs"])):
+        out = os.path.join(WORK, f"ebola175_m2_mesh_{route.split()[0]}.fasta")
+        with virtual_places(MESH_PLACES), ctx, recording(
+                si, "instance_to_host", lambda a, k, r: kept.append(r)):
+            pb, wall, launches, peak = counted(
+                torch, si, profiling, lambda: design(
+                    [in175, "-o", out, "-pl", "100", "-m", "2", "-l", "60",
+                     "-e", "50", "--device", "cuda", "--num-devices",
+                     str(MESH_PLACES)]))
+        what = f"ebola175 m2 on {MESH_PLACES} places, {route}"
+        if not same_bytes(out, os.path.join(GOLDEN,
+                                            "torch_ebola175_m2.fasta")):
+            fail(f"{what}: output differs from torch_ebola175_m2.fasta")
+        scf = pb.filters[-1]
+        stats = scf.last_run_stats
+        if scf.mesh is None or scf.mesh.size != MESH_PLACES:
+            fail(f"{what}: the filter got the mesh {scf.mesh}")
+        got = (stats["candidates_evaluated"], stats["set_cover_picks"])
+        if got != stats5:
+            fail(f"{what}: (candidates, picks) {got} differ from the "
+                 f"single-place run's {stats5}")
+        print(f"{what}: {len(pb.final_probes)} probes, equal to golden; "
+              f"wall {wall:.3f} s; {got[0]} candidates and {got[1]} picks, "
+              f"as on one place; peak allocated device memory "
+              f"{peak / 2**20:.1f} MiB", flush=True)
+        print_phases(profiling, ("set_cover", "scan"))
+        by_place = stats["launches_by_place"]
+        print(f"launches ({what}): {launches}; by place: {by_place}",
+              flush=True)
+        require_launched(launches, needed, what)
+        for d in range(MESH_PLACES):
+            require_launched(by_place.get(d, dict.fromkeys(PLACE_KERNELS, 0)),
+                             PLACE_KERNELS, f"place {d} of {what}")
+        for k in PLACE_KERNELS:
+            by = sum(v[k] for v in by_place.values())
+            lead_only = 1 if k == "rolling_hash" else 0  # the probe table
+            if launches[k] != by + lead_only:
+                fail(f"{what}: {launches[k]} launches of {k}, but the "
+                     f"places count {by} and the lead {lead_only}")
+    inst, = kept
+    return inst, launches
+
+
+def mesh_span_scan(torch, si, profiling, device, cands, genomes8, bg, ref):
+    """Phase 18: the identify and avoid goldens and the 100 Mbp avoid
+    ranks on 4 places; `ref` is phase 8's (wall, peak bytes).  Returns the
+    launches of the avoid scan."""
+    from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
+    from catch_tpu_torch.parallel import make_mesh
+
+    with virtual_places(MESH_PLACES):
+        si.reset_launches()
+        identify_avoid_goldens(f" ({MESH_PLACES} places)",
+                               ["--num-devices", str(MESH_PLACES)])
+        require_launched({n: f.launches for n, f in si.KERNELS.items()},
+                         ["verify_spans_sharded"] + PLACE_KERNELS,
+                         "the identify and avoid designs on the mesh")
+        scf = SetCoverFilter(mismatches=2, lcf_thres=60, cover_extension=50,
+                             avoided_genomes=[bg], device=device,
+                             mesh=make_mesh(MESH_PLACES, device))
+        want, n_flagged = expected_ranks(len(cands))
+        ranks, wall, launches, peak = counted(
+            torch, si, profiling, lambda: scf._make_ranks(cands, [genomes8]))
+    if not (ranks == want).all():
+        fail(f"avoid ranks on {MESH_PLACES} places differ from "
+             "avoid100m_ranks.tsv")
+    print(f"avoid 100 Mbp on {MESH_PLACES} places: ranks equal to golden "
+          f"({len(cands)} candidates, {n_flagged} flagged); wall {wall:.3f} "
+          f"s (one place: {ref[0]:.3f} s); {2 * AVOID_BG_BP / wall:.0f} bp/s "
+          f"over both strands (one place: {2 * AVOID_BG_BP / ref[0]:.0f}); "
+          f"peak allocated device memory {peak / 2**20:.1f} MiB (one place: "
+          f"{ref[1] / 2**20:.1f} MiB)", flush=True)
+    print_phases(profiling, ("span",))
+    print(f"launches in the avoid scan on the mesh: {launches}", flush=True)
+    require_launched(launches, ["expand_join", "verify_spans_sharded",
+                                "segmented_merge"], "the avoid scan on the mesh")
+    if launches["verify_spans"]:
+        fail("the avoid scan on the mesh verified through verify_spans")
+    return launches
+
+
+def sharded_solver_bench(torch, si, profiling, device, instances):
+    """Phase 19: each (name, instance, host pick order) through
+    solve_instance_sharded and solve_instance(force_device=True, mesh=)
+    at 1, 2, 4 and 8 places, counting launches; every pick order must
+    equal the host's.  The wall clock runs over the whole call (the
+    partition on the host and its copy to the places included) to a
+    synchronised end; the steps' share is the solver's own phase
+    solve_sharded:steps.  Returns the launches."""
+    import numpy as np
+
+    from catch_tpu_torch.ops import set_cover as sct
+    from catch_tpu_torch.parallel import make_mesh, solve_instance_sharded
+
+    def run_all():
+        for name, inst, want in instances:
+            for n in (1, 2, 4, 8):
+                with virtual_places(n):
+                    mesh = make_mesh(n, device)
+                for label, fn in (
+                        ("solve_instance_sharded",
+                         lambda: solve_instance_sharded(inst, mesh=mesh)),
+                        ("solve_instance(force_device=True, mesh=)",
+                         lambda: sct.solve_instance(inst, force_device=True,
+                                                    device=device,
+                                                    mesh=mesh))):
+                    n0 = {k: si.KERNELS[k].launches
+                          for k in ("greedy_sharded", "greedy_v1")}
+                    profiling.reset_phases()
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    got = fn()
+                    torch.cuda.synchronize()
+                    dt = time.time() - t0
+                    ran = {k: si.KERNELS[k].launches - v
+                           for k, v in n0.items()}
+                    kernel = max(ran, key=ran.get)
+                    steps = ran[kernel] * sct._STEPS_PER_DISPATCH
+                    if not np.array_equal(got, want):
+                        fail(f"{name}, {label} on {n} places: pick order "
+                             "differs from the host lazy solver's")
+                    # the sharded solver books its steps apart from its
+                    # partition; the one-place K13 route books nothing
+                    step_s = profiling.phase_seconds.get(
+                        "solve_sharded:steps", dt)
+                    print(f"{name}, {label}, {n} places ({kernel}): "
+                          f"{len(got)} picks, equal to the host's; {dt:.4f} "
+                          f"s, {len(got) / dt:.1f} picks/s; {steps} steps in "
+                          f"{step_s:.4f} s, {1e3 * step_s / steps:.4f} ms a "
+                          f"step", flush=True)
+
+    _, wall, launches, peak = counted(torch, si, profiling, run_all)
+    print(f"launches in the sharded solver runs: {launches}; peak allocated "
+          f"device memory {peak / 2**20:.1f} MiB", flush=True)
+    require_launched(launches, ["init_covered", "greedy_sharded"],
+                     "the sharded solver runs")
+    return launches
+
+
+def check_mesh_kernels(torch, device, instances, span_inputs):
+    """Phase 20: greedy_sharded on one 64-step dispatch of each instance,
+    verify_spans_sharded on phase 6's candidates and dedup_pairs on the
+    ebola175 scan's joined pairs, at 4 places, against their twins.
+    Returns the JSON rows (greedy_sharded at the last instance's
+    shapes)."""
+    from catch_tpu_torch.ops import scan_sparse as ss
+    from catch_tpu_torch.ops import set_cover as sct
+    from catch_tpu_torch.parallel import make_mesh
+    from catch_tpu_torch.parallel import set_cover as psc
+
+    n = MESH_PLACES
+    n_steps = sct._STEPS_PER_DISPATCH
+    with virtual_places(n):
+        mesh = make_mesh(n, device)
+    rows = []
+    for name, inst, _ in instances:
+        part = psc.place_partition(psc.partition_instance(inst, n),
+                                   inst.can_uncover, mesh)
+        consts, u_size = sct._instance_consts(inst, device)
+        states0 = psc.initial_states(sct.init_covered(
+            consts["ivl_start"], consts["ivl_end"], inst.u_len), u_size, part)
+        del consts
+
+        def steps(f, part=part, states0=states0):
+            states = f([{k: v.clone() for k, v in s.items()}
+                        for s in states0], part, n_steps)
+            for other in states[1:]:
+                for k in ("covered", "len_u", "order", "n_chosen",
+                          "cur_rank", "stop"):
+                    if not torch.equal(other[k], states[0][k]):
+                        fail(f"greedy_sharded ({name}): the replicas of {k} "
+                             "differ")
+            return tuple(t for s in states for t in s.values())
+
+        shapes = [(s["ivl_start"].numel(), s["set_of_pair"].numel(),
+                   s["cost"].numel()) for s in part["shards"]]
+        print(f"greedy_sharded shapes ({name}): {n} places, "
+              f"{inst.u_len} positions and {inst.n_universes} universes "
+              f"replicated; (intervals, pairs, sets) per place {shapes}; "
+              f"update rows of {part['max_ivls_per_set']} intervals and "
+              f"{part['max_pairs_per_set']} pairs; {n_steps} steps",
+              flush=True)
+        # every place reads its replica of the axis and its shard a step
+        work = [step_work(inst.u_len, M, P, S, inst.n_universes, 12, 8)
+                for M, P, S in shapes]
+        rows = compare(torch, [
+            ("greedy_sharded", steps, psc._greedy_steps_sharded_plain,
+             psc.greedy_steps_sharded, 5,
+             (n_steps * sum(w[0] for w in work),
+              n_steps * sum(w[1] for w in work)))])
+        del part, states0
+
+    def put(x):
+        return torch.from_numpy(x).to(device)
+
+    x = span_inputs
+    cand = [c.to(device) for c in x["cand"]]
+    replicas = [(put(x["mega"]), put(x["codes"])) for _ in range(n)]
+    n_cand, L = cand[0].numel(), x["codes"].shape[1]
+    print(f"verify_spans_sharded shapes: {n} places, each with a replica of "
+          f"the {len(x['mega'])}-position corpus and the "
+          f"{x['codes'].shape[0]} probe rows; {n_cand} candidates in blocks "
+          f"of about {-(-n_cand // n)}; {x['n_spans']} spans", flush=True)
+
+    def twin(reps, *cand, **kw):
+        return ss._verify_spans_plain(*reps[0], *cand, **kw)
+
+    # The function reads the corpus and the probe rows once, as
+    # verify_spans does: the places hold replicas, but each candidate is
+    # verified by one place only.
+    rows += compare(torch, [
+        ("verify_spans_sharded", lambda f: f(replicas, *cand, **x["vargs"]),
+         twin, ss.verify_spans_sharded, 10,
+         (len(x["mega"]) + x["codes"].size + 48 * n_cand
+          + 24 * x["n_spans"], n_cand * L))])
+    del replicas, cand
+    return rows + compare(torch, [dedup_case(torch, device, n)])
+
+
+def dedup_case(torch, device, n):
+    """The compare case of dedup_pairs on the pairs that the n places of
+    the mesh-split ebola175 scan hand to the lead: each place's
+    lookup_expand over its range of samples, joined in place order.  The
+    function reads each pair once and writes each distinct pair once (16
+    bytes either way) and sorts them; one torch.unique over the (pair, 2)
+    rows computes the same."""
+    from catch_tpu_torch.ops import scan_instance as si
+
+    x = kernel_inputs(torch, device)
+    st, kj, s, total = x["st"], x["kj"], x["s"], x["total"]
+    table = si.build_table(st["codes"], kj)
+    ranges = si.split_range(-(-total // s), n)
+    pairs = [si.lookup_expand(
+        *table, si.rolling_hash(st["mega"][g0 * s:], g1 - g0, s, kj,
+                                total - kj - g0 * s), s, sample0=g0)
+             for g0, g1 in zip(ranges, ranges[1:])]
+    p, a = si.join_on(device, pairs)
+    n_in, n_out = p.numel(), si.dedup_pairs(p, a)[0].numel()
+    print(f"dedup_pairs shapes: {n_in} pairs from {n} places "
+          f"{[q[0].numel() for q in pairs]}, {n_out} distinct", flush=True)
+    del x, st, table, pairs
+    rows2 = torch.stack((p, a), dim=1)
+    return ("dedup_pairs", lambda f: f(p, a), si._dedup_pairs_plain,
+            si.dedup_pairs, 10,
+            (16 * (n_in + n_out), n_in * max(1, (n_in - 1).bit_length())),
+            lambda: torch.unique(rows2, dim=0).unbind(1))
 
 
 def main():
@@ -1137,6 +1459,7 @@ def main():
     print(f"ebola175 m2: {len(pb.final_probes)} probes, equal to golden; "
           f"wall {wall:.3f} s; {stats['candidates_evaluated']} candidates; "
           f"{stats['set_cover_picks']} picks", flush=True)
+    stats5 = (stats["candidates_evaluated"], stats["set_cover_picks"])
     print_phases(profiling, ("candidate", "filter", "set_cover", "scan"))
     print(f"launches in the ebola175 run: {launches}", flush=True)
     require_launched(launches, design_kernels, "the ebola175 design")
@@ -1146,7 +1469,8 @@ def main():
 
     # Phase 6: the span kernels against their twins at the avoid shapes.
     genomes8, cands, scf, bg = avoid_setup(device)
-    span_rows = check_span_kernels(torch, device, scf, cands, bg)
+    span_inputs, span_rows = check_span_kernels(torch, device, scf, cands,
+                                                bg)
     clock.done(6)
 
     # Phase 7: the identify and avoid goldens through the CLI.
@@ -1169,6 +1493,7 @@ def main():
                                 "segmented_merge"], "the avoid scan")
     for r in span_rows:
         r["launches"] = launches[r["name"]]
+    avoid_ref = (wall, peak)
     clock.done(8)
 
     # Phase 9: coverage analysis of ebola175 through the CLI.
@@ -1229,7 +1554,8 @@ def main():
     clock.done(14)
 
     # Phase 15: the four solvers on bench.py's solver instance.
-    inst, k13_launches = solver_bench(torch, si, profiling, device)
+    inst, want_bench, k13_launches = solver_bench(torch, si, profiling,
+                                                  device)
     clock.done(15)
 
     # Phase 16: the solver kernels against their twins.
@@ -1238,6 +1564,42 @@ def main():
                          else solver_launches)[r["name"]]
         rows.append(r)
     clock.done(16)
+
+    # Importing the sharded solver registers its kernel.
+    from catch_tpu_torch.ops import set_cover as sct
+    from catch_tpu_torch.parallel import set_cover  # noqa: F401
+
+    # Phase 17: ebola175 m2 on four places, both solver routes.
+    inst175, mesh_scan_launches = mesh_design(torch, si, profiling, in175,
+                                              stats5)
+    clock.done(17)
+
+    # Phase 18: the span scan on four places.
+    span_launches = mesh_span_scan(torch, si, profiling, device, cands,
+                                   genomes8, bg, avoid_ref)
+    clock.done(18)
+
+    # Phase 19: the sharded solver at 1, 2, 4 and 8 places.
+    t0 = time.time()
+    want175 = sct._solve_host_lazy(inst175)
+    print(f"ebola175 instance: {inst175.n_sets} sets, {inst175.u_len} "
+          f"positions, {len(inst175.ivl_start)} intervals, "
+          f"{len(inst175.set_of_pair)} pairs; host lazy solver "
+          f"{len(want175)} picks in {time.time() - t0:.3f} s", flush=True)
+    instances = [("solver instance", inst, want_bench),
+                 ("ebola175 instance", inst175, want175)]
+    mesh_launches = sharded_solver_bench(torch, si, profiling, device,
+                                         instances)
+    clock.done(19)
+
+    # Phase 20: the mesh's kernels against their twins.
+    for r in check_mesh_kernels(torch, device, instances, span_inputs):
+        r["launches"] = {"greedy_sharded": mesh_launches,
+                         "verify_spans_sharded": span_launches,
+                         "dedup_pairs": mesh_scan_launches}[r["name"]][
+                             r["name"]]
+        rows.append(r)
+    clock.done(20)
 
     print(json.dumps({"kernels": rows}))
     print(card)

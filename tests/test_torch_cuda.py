@@ -558,3 +558,206 @@ def test_filter_device_solve_on_cuda(cuda, monkeypatch):
     assert got == want and got
     for name in ("assemble", "init_covered", "greedy_v2"):
         assert si.KERNELS[name].launches > 0, name
+
+
+# ----------------------------------------------------------------------
+# The mesh: virtual places on the one card
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def places8(cuda, monkeypatch):
+    monkeypatch.setenv("CATCH_TPU_VIRTUAL_DEVICES", "8")
+    return cuda
+
+
+def _sharded_setup(inst, n, dev):
+    """(placed partition, initial states) of `inst` on n places of dev."""
+    from catch_tpu_torch.ops import set_cover as sct
+    from catch_tpu_torch.parallel import make_mesh
+    from catch_tpu_torch.parallel import set_cover as psc
+
+    mesh = make_mesh(n, dev)
+    part = psc.place_partition(psc.partition_instance(inst, n),
+                               inst.can_uncover, mesh)
+    consts, u_size = sct._instance_consts(inst, mesh.lead)
+    covered = sct.init_covered(consts["ivl_start"], consts["ivl_end"],
+                               inst.u_len)
+    return part, psc.initial_states(covered, u_size, part)
+
+
+def _states_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        _assert_equal([g[k] for k in g], [w[k] for k in g])
+    for g in got[1:]:
+        for k in ("covered", "len_u", "order", "n_chosen", "cur_rank",
+                  "stop"):
+            assert torch.equal(g[k], got[0][k]), k
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["random", "ties", "nothing"])
+def test_greedy_sharded_equals_twin(places8, case, n):
+    """One 64-step dispatch on the card against the twin, every place's
+    state included and all replicas equal, past the stop; then single
+    steps give the same state.  'ties' has 12 sets, so 8 places of 2
+    leave two shards empty; its first 11 ratios are equal."""
+    from catch_tpu_torch.parallel import set_cover as psc
+
+    inst = _cover_instance(case)
+    part, states0 = _sharded_setup(inst, n, places8)
+    got = psc.greedy_steps_sharded([_clone(s) for s in states0], part, 64)
+    torch.cuda.synchronize()
+    want = psc._greedy_steps_sharded_plain([_clone(s) for s in states0],
+                                           part, 64)
+    _states_equal(got, want)
+    assert bool(got[0]["stop"])
+    n_chosen = int(got[0]["n_chosen"])
+    assert (n_chosen == 0) == (case == "nothing")
+    if case == "ties":
+        assert got[0]["order"][:11].tolist() == list(range(11))
+        assert sum(s["cost"].numel() == 0 for s in part["shards"]) == (
+            2 if n == 8 else 0)
+    single = [_clone(s) for s in states0]
+    for _ in range(64):
+        psc.greedy_steps_sharded(single, part, 1)
+    _states_equal(single, got)
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_greedy_sharded_buffers_per_card_equal_shared(places8, monkeypatch,
+                                                      n):
+    """The copies between distinct cards (every card its own candidate
+    slots and update rows, slot d and row d copied from place d's card
+    to the others between the phases), forced here by counting every
+    place as a card of its own though all lie on the one card."""
+    from catch_tpu_torch.parallel import set_cover as psc
+
+    inst = _cover_instance("random")
+    part, states0 = _sharded_setup(inst, n, places8)
+    want = psc.greedy_steps_sharded([_clone(s) for s in states0], part, 40)
+    assert psc._cards(places8 for _ in range(n)) == [0] * n
+    monkeypatch.setattr(psc, "_cards", lambda places: list(range(n)))
+    got = psc.greedy_steps_sharded([_clone(s) for s in states0], part, 40)
+    torch.cuda.synchronize()
+    _states_equal(got, want)
+
+
+@pytest.mark.parametrize("case,n", [("random", 1), ("random", 4),
+                                    ("random", 8), ("ties", 8),
+                                    ("ties", 16), ("nothing", 4)])
+def test_sharded_solver_on_cuda_equals_host(cuda, monkeypatch, case, n):
+    """solve_instance_sharded and solve_instance(force_device=True,
+    mesh=) on the card give the host lazy solver's picks, with a shard
+    count above the set count too ('ties' has 12 sets)."""
+    from catch_tpu_torch.ops import set_cover as sct
+    from catch_tpu_torch.parallel import make_mesh, solve_instance_sharded
+
+    monkeypatch.setenv("CATCH_TPU_VIRTUAL_DEVICES", str(n))
+    inst = _cover_instance(case)
+    want = sct.solve_instance(inst)
+    mesh = make_mesh(n, cuda)
+    si.reset_launches()
+    assert np.array_equal(solve_instance_sharded(inst, mesh=mesh), want)
+    assert np.array_equal(
+        sct.solve_instance(inst, force_device=True, mesh=mesh), want)
+    if case != "nothing" and n > 1:
+        assert si.KERNELS["greedy_sharded"].launches >= 2
+        assert si.KERNELS["greedy_v1"].launches == 0
+
+
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("keep", [None, 5, 0])
+def test_verify_spans_sharded_equals_verify_spans(places8, n, keep):
+    """Equal to verify_spans and to the twin, with fewer candidates than
+    places and with none; a place with an empty block launches nothing."""
+    seqs = _span_corpus(3)
+    probes = list(dict.fromkeys(make_candidate_probes_from_sequences(
+        seqs[:6], probe_length=60, probe_stride=25)))
+    searcher = ProbeSearcher(probes, CoverModel(mismatches=2, lcf_thres=40),
+                             device=places8)
+    mega, starts, ends, total = ss.corpus_codes(searcher, seqs)
+    lo, cnt, pos = (torch.from_numpy(x).to(places8)
+                    for x in ss.join_runs(searcher, mega[:total]))
+    pa = ss.expand_join(lo, cnt, pos, *ss.join_table(searcher, places8),
+                        searcher.Lmax)
+    cand = ss.keep_candidates(searcher, *pa,
+                              torch.from_numpy(starts).to(places8),
+                              torch.from_numpy(ends).to(places8))
+    if keep is not None:
+        cand = tuple(x[:keep].contiguous() for x in cand)
+    mega_t = torch.from_numpy(mega).to(places8)
+    codes_t = torch.from_numpy(searcher.probe_codes).to(places8)
+    vargs = ss.verify_args(searcher)
+    want = ss.verify_spans(mega_t, codes_t, *cand, **vargs)
+    si.reset_launches()
+    got = ss.verify_spans_sharded(
+        [(mega_t.clone(), codes_t.clone()) for _ in range(n)], *cand,
+        **vargs)
+    torch.cuda.synchronize()
+    _assert_equal(got, want)
+    _assert_equal(got, ss._verify_spans_plain(mega_t, codes_t, *cand,
+                                              **vargs))
+    assert (want[0].numel() > 0) == (keep != 0)
+    assert ss.verify_spans_sharded.launches == min(n, cand[0].numel())
+    assert ss.verify_spans.launches == 0
+
+
+@pytest.mark.parametrize("n_pairs,n_probes,span", [(0, 5, 50), (1, 5, 50),
+                                                  (200_000, 400, 300),
+                                                  (50_000, 3, 2 ** 31 - 1)])
+def test_dedup_pairs_equals_twin(cuda, n_pairs, n_probes, span):
+    """The lead's dedup on the card against its twin and numpy: sorted
+    by (probe, alignment), every pair once; an empty input launches
+    nothing."""
+    rng = np.random.default_rng(n_pairs)
+    p = rng.integers(0, n_probes, size=n_pairs)
+    a = rng.integers(max(0, span - 300), span + 1, size=n_pairs)
+    pt, at = torch.from_numpy(p).to(cuda), torch.from_numpy(a).to(cuda)
+    si.reset_launches()
+    got = si.dedup_pairs(pt, at)
+    torch.cuda.synchronize()
+    assert si.dedup_pairs.launches == (1 if n_pairs else 0)
+    assert si.lookup_expand.launches == 0
+    _assert_equal(got, si._dedup_pairs_plain(pt, at))
+    want = np.unique(np.stack([p, a], axis=1), axis=0).reshape(-1, 2)
+    assert n_pairs < 50_000 or len(want) < n_pairs
+    assert np.array_equal(got[0].cpu().numpy(), want[:, 0])
+    assert np.array_equal(got[1].cpu().numpy(), want[:, 1])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_design_on_a_cuda_mesh_equals_one_place(cuda, monkeypatch, n):
+    """The filter on a mesh of virtual places on the card: the probe set,
+    the candidate count and the picks equal the single-place run's on
+    both solver routes, and the scan's kernels launch for every
+    place."""
+    from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
+    from catch_tpu_torch.genome import Genome
+    from catch_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setenv("CATCH_TPU_VIRTUAL_DEVICES", str(n))
+    genomes = [Genome.from_one_seq(g[0]) for g in _genomes(4, 1, False)]
+    probes = make_candidate_probes_from_sequences(
+        [g.seqs[0] for g in genomes], probe_length=80, probe_stride=40)
+
+    def run(mesh):
+        f = SetCoverFilter(2, 60, cover_extension=25, device=cuda, mesh=mesh)
+        out = f.filter([list(probes)], [genomes], input_is_grouped=True)[0]
+        return [p.seq_str for p in out], f.last_run_stats
+
+    want, stats1 = run(None)
+    for solve in (None, "device"):
+        if solve:
+            monkeypatch.setenv("CATCH_TPU_SOLVE", solve)
+        si.reset_launches()
+        got, stats = run(make_mesh(n, cuda))
+        assert got == want and got
+        assert stats["candidates_evaluated"] == stats1["candidates_evaluated"]
+        assert stats["set_cover_picks"] == stats1["set_cover_picks"]
+        assert sorted(stats["launches_by_place"]) == list(range(n))
+        assert all(v == {"rolling_hash": 1, "lookup_expand": 1,
+                         "verify_windows": 1}
+                   for v in stats["launches_by_place"].values())
+        assert si.lookup_expand.launches == n
+        assert si.dedup_pairs.launches == 1

@@ -97,7 +97,7 @@ import sys
 from catch_tpu_torch.cli import analyze_probe_coverage, design
 design.main(design.init_and_parse_args(
     [{fasta!r}, "-o", {out!r}, "-pl", "100", "-m", "2", "-l", "60",
-     "-e", "50", "--device", "cpu"]))
+     "-e", "50", "--device", "cpu"] + {extra!r}))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "catch_tpu"))
 assert not bad, bad
@@ -120,15 +120,32 @@ except ModuleNotFoundError:
 '''
 
 
-@pytest.mark.parametrize("block", ["", _BLOCK_JAX],
-                         ids=["jax_installed", "jax_blocked"])
-def test_port_runs_without_jax(tmp_path, block):
+_ON_A_MESH = r'''
+assert "catch_tpu_torch.parallel.set_cover" in sys.modules
+assert "catch_tpu_torch.parallel.mesh" in sys.modules
+print("MESH_OK")
+'''
+
+
+@pytest.mark.parametrize("block,mesh", [("", False), (_BLOCK_JAX, False),
+                                        (_BLOCK_JAX, True)],
+                         ids=["jax_installed", "jax_blocked",
+                              "jax_blocked_on_a_mesh"])
+def test_port_runs_without_jax(tmp_path, block, mesh):
+    """With `mesh`, the design runs with --num-devices 2 over two virtual
+    CPU places, so catch_tpu_torch/parallel/ is imported there too."""
     code = _NO_JAX.format(block=block, fasta=_subset(tmp_path, 2),
-                          out=str(tmp_path / "p.fasta"))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          out=str(tmp_path / "p.fasta"),
+                          extra=["--num-devices", "2"] if mesh else [])
+    env = dict(os.environ)
+    if mesh:
+        code += _ON_A_MESH
+        env["CATCH_TPU_VIRTUAL_DEVICES"] = "2"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "NO_JAX_OK" in proc.stdout
+    assert ("MESH_OK" in proc.stdout) == mesh
     assert _records(str(tmp_path / "p.fasta"))
 
 
@@ -136,7 +153,7 @@ def test_port_runs_without_jax(tmp_path, block):
     ["--custom-hybridization-fn", "m.py", "f"], ["--add-adapters"],
     ["--filter-polya", "10", "2"],
     ["--skip-set-cover"],
-    ["--add-reverse-complements"], ["--num-devices", "2"],
+    ["--add-reverse-complements"],
 ])
 def test_cli_refuses_unported_flags(argv, capsys):
     with pytest.raises(SystemExit) as e:
