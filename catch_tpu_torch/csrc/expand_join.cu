@@ -12,11 +12,11 @@
 // catch_tpu/ops/cover.py:360-364 builds; nonnegative, since an alignment
 // reaches back at most Lmax - 1), one torch.sort orders the keys, and
 // the compaction keeps the first row of every run of equal keys
-// (ct_unique_flags of lookup_expand.cu, a torch.cumsum, then
-// ct_join_emit here).
+// (ct_unique_flags, a torch.cumsum, then ct_join_emit).
 //
 // Bound on the card: the expansion is store bound, one 8-byte key per
-// hit; the sort dominates.  A run with many hits is walked by one
+// hit; the sort of the raw hits dominates (the plan K2's lookup_expand
+// gave up for a probe-major merge join).  A run with many hits is walked by one
 // thread: with w = 1 (k_seed <= 12) a frequent kj-mer can have
 // thousands, so the work is imbalanced, but it is small next to the
 // sort.
@@ -45,6 +45,13 @@ __global__ void expand_join_kernel(const int64_t* __restrict__ lo,
     }
 }
 
+__global__ void unique_flags_kernel(const int64_t* __restrict__ k, int64_t n,
+                                    int64_t* __restrict__ flags) {
+    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    flags[i] = (i == 0 || k[i] != k[i - 1]) ? 1 : 0;
+}
+
 __global__ void join_emit_kernel(const int64_t* __restrict__ k,
                                  const int64_t* __restrict__ flags,
                                  const int64_t* __restrict__ pos_incl,
@@ -70,6 +77,16 @@ extern "C" int ct_expand_join(const void* lo, const void* cnt,
             (const int64_t*)off_incl, (const int64_t*)pos, n_runs,
             (const int64_t*)join_p, (const int64_t*)join_pos, lmax,
             (int64_t*)keys);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int ct_unique_flags(const void* k, int64_t n, void* flags,
+                               void* stream) {
+    if (n > 0) {
+        unique_flags_kernel<<<ct_blocks(n, 256), 256, 0,
+                              ct_stream(stream)>>>(
+            (const int64_t*)k, n, (int64_t*)flags);
     }
     return (int)cudaGetLastError();
 }

@@ -8,9 +8,10 @@ kernels (sources in catch_tpu_torch/csrc/):
   T. Probe seed table: K1 rolling_hash of every kj-mer of every probe
      row, then a stable torch.sort into (hash, probe, offset).
   A. Query sampling: K1 at every s-th corpus position.
-  B. Pairs: K2 lookup_expand finds each sample's run of equal hashes in
-     the table, expands the runs into (probe, alignment) pairs, and
-     deduplicates them (torch.sort of a packed key + compaction).
+  B. Pairs: K2 lookup_expand sorts the samples by hash and, one warp
+     per probe, merges the runs of samples that each probe offset's hash
+     finds into the probe's distinct (probe, alignment) pairs; no raw
+     hit is stored.
   C. Verification: K3 verify_windows turns each pair into its maximal
      <= K-mismatch windows that hold a >= seed_req exact run, applies
      cover extension and the chromosome clamp, and emits
@@ -47,14 +48,14 @@ re-dispatch, the pre-shifted probe copies and the word-aligned gather,
 the bucketed bisection and its escalation, and the batched and
 hierarchical merges.  Every stage runs once over the whole
 corpus; 64-bit indices throughout replace the int32 limits, and the
-bounds that remain (32-bit fields of the packed sort keys) raise.
+bounds that remain (the 31-bit probe and alignment fields) raise.
 
 With a mesh of more than one place on the searcher (ProbeSearcher(...,
 mesh=)), stages A, B and C are split over the places by contiguous
 ranges (_run_pipeline) where catch_tpu round-robins its slabs, hit
 subranges and candidate chunks (catch_tpu/ops/scan_instance.py
 :887-915, :980-1001, :1050-1057); the lead deduplicates the places'
-pairs once more (dedup_pairs: K2's sort and compaction alone), and the
+pairs once more (dedup_pairs: a probe-bucketed dedup), and the
 merges and everything after them run on the lead; the result is the
 same at every mesh size.
 
@@ -196,70 +197,102 @@ def lookup_expand(tbl_h, tbl_p, tbl_pos, q, s, sample0=0):
     Sample g of q is corpus sample sample0 + g (corpus position
     (sample0 + g) * s); it matches every table row with its hash; a
     match with (probe p, offset pos) is the pair
-    (p, (sample0 + g) * s - pos).
+    (p, (sample0 + g) * s - pos).  Alignments are nonnegative (the
+    corpus's leading pad) and below 2^31: (sample0 + n_q) * s must be,
+    or ValueError.
     Returns (p, a) int64, sorted by (p, a), without duplicates.
 
     Replaces catch_tpu/ops/scan_instance.py _lookup_jit (:217-272),
     _expand_hits_jit (:293-338) and _dedup_pairs_jit (:341-360); the
-    kernels are csrc/lookup_expand.cu (binary search: latency bound;
-    expansion and compaction: store bound), the sort is torch.sort.
+    kernels are csrc/lookup_expand.cu: a probe-major merge join over
+    the sorted samples (torch.sort of the n_q samples) that never
+    stores a raw hit.
     """
     for t, name in ((tbl_h, "tbl_h"), (tbl_p, "tbl_p"),
                     (tbl_pos, "tbl_pos"), (q, "q")):
         _require(t, torch.int64, name)
+    if (sample0 + q.numel()) * s >= _PAIR_KEY_LIMIT:
+        raise ValueError(f"samples up to {sample0 + q.numel()} at stride {s} "
+                         "exceed the 31-bit alignment field")
     if _on_cpu(tbl_h, tbl_p, tbl_pos, q):
         return _lookup_expand_plain(tbl_h, tbl_p, tbl_pos, q, s, sample0)
-    dev = q.device
-    n_q, n_tbl = q.numel(), tbl_h.numel()
-    empty = torch.empty(0, dtype=torch.int64, device=dev)
-    if n_q == 0 or n_tbl == 0:
-        return empty, empty.clone()
-    lib = _build.library()
-    stream = _build.stream_of(q)
-    lo = torch.empty(n_q, dtype=torch.int64, device=dev)
-    cnt = torch.empty(n_q, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_lookup(_build.ptr(tbl_h), n_tbl, _build.ptr(q),
-                               n_q, _build.ptr(lo), _build.ptr(cnt),
-                               stream), "lookup")
-    off = torch.cumsum(cnt, 0)
-    total = int(off[-1])
-    keys = torch.empty(total, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_expand(
-        _build.ptr(lo), _build.ptr(cnt), _build.ptr(off), n_q,
-        _build.ptr(tbl_p), _build.ptr(tbl_pos), s, sample0,
-        _build.ptr(keys),
-        stream), "expand")
-    lookup_expand.launches += 1
-    return _unique_pairs(keys)
+    return _lookup_expand_cuda(tbl_h, tbl_p, tbl_pos, q, s, sample0)
 
 
 lookup_expand.launches = 0
 
 
-def _unique_pairs(keys):
-    """(p, a) of the distinct packed keys p * 2^32 + a on a CUDA device,
-    sorted: torch.sort, then the compaction kernels of
-    csrc/lookup_expand.cu."""
-    dev = keys.device
-    total = keys.numel()
+def _no_marks(name):
+    pass
+
+
+def _max_pair(lib, x, y, key, stream):
+    """(max x, max y) over the rows whose key is not HMAX (all rows for
+    key None), as int64 views of the unsigned maxima: negative when any
+    value is negative.  One host read (csrc/dedup_pairs.cu)."""
+    out = torch.zeros(2, dtype=torch.int64, device=x.device)
+    _build.check(lib.ct_max_pair(
+        _build.ptr(x), _build.ptr(y), None if key is None else _build.ptr(key),
+        x.numel(), _build.ptr(out), stream), "max_pair")
+    return out.tolist()
+
+
+def _lookup_expand_cuda(tbl_h, tbl_p, tbl_pos, q, s, sample0, steps=None):
+    """lookup_expand on the card.  `steps`, when given, has a
+    mark(name) method called after each step (tools/k2_split.py times
+    the steps with CUDA events)."""
+    mark = steps.mark if steps is not None else _no_marks
+    dev = q.device
+    n_q, n_tbl = q.numel(), tbl_h.numel()
     empty = torch.empty(0, dtype=torch.int64, device=dev)
-    if total == 0:
+    if n_q == 0 or n_tbl == 0:
         return empty, empty.clone()
+    mark("start")
     lib = _build.library()
-    stream = _build.stream_of(keys)
-    keys = torch.sort(keys, stable=True).values
-    flags = torch.empty(total, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_unique_flags(_build.ptr(keys), total,
-                                     _build.ptr(flags), stream),
-                 "unique_flags")
-    pos = torch.cumsum(flags, 0)
-    n = int(pos[-1])
-    p = torch.empty(n, dtype=torch.int64, device=dev)
-    a = torch.empty(n, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_unique_emit(
-        _build.ptr(keys), _build.ptr(flags), _build.ptr(pos), total,
-        _build.ptr(p), _build.ptr(a), stream), "unique_emit")
+    stream = _build.stream_of(q)
+    # The largest probe id and offset of the rows that can match (a
+    # sentinel row never does, and no other field of it is read).
+    max_p, max_pos = _max_pair(lib, tbl_p, tbl_pos, tbl_h, stream)
+    if not (0 <= max_p < _PAIR_KEY_LIMIT and 0 <= max_pos < _PAIR_KEY_LIMIT):
+        raise ValueError("table probe ids and offsets must lie in "
+                         "[0, 2^31)")
+    n_probes = max_p + 1
+    # Offsets a lane holds in registers: enough for a probe of
+    # max_pos + 1 offsets up to 8 (a longer probe merges in scratch).
+    lane_slots = next(j for j in (2, 4, 8) if 32 * j > max_pos or j == 8)
+    mark("table bounds read")
+    # Sample side: hashes and ids, sorted by hash.
+    qs, qi = torch.sort(q, stable=True)
+    mark("sample sort")
+    # Probe side, counting pass and offsets (csrc/lookup_expand.cu); the
+    # int64 workspace ends with the pairs' inclusive offsets and the
+    # kernel's probe counter.
+    ws32 = torch.empty(2 * n_q + 5 * n_tbl, dtype=torch.int32, device=dev)
+    ws64 = torch.empty(4 * n_probes + 1, dtype=torch.int64, device=dev)
+
+    def run(p, a, emit):
+        _build.check(lib.ct_le_merge(
+            _build.ptr(qs), _build.ptr(qi), n_q, _build.ptr(tbl_h),
+            _build.ptr(tbl_p), _build.ptr(tbl_pos), n_tbl, sample0 * s, s,
+            n_probes, lane_slots, _build.ptr(ws32), _build.ptr(ws64), p, a,
+            emit, stream), "le_merge")
+
+    run(None, None, 0)
+    mark("probe side and counting pass")
+    total = int(ws64[4 * n_probes - 1])
+    mark("read")
+    p = torch.empty(total, dtype=torch.int64, device=dev)
+    a = torch.empty(total, dtype=torch.int64, device=dev)
+    run(_build.ptr(p), _build.ptr(a), 1)
+    lookup_expand.launches += 1
+    mark("emit pass")
     return p, a
+
+
+# Entries of dedup_pairs' shared-memory tile: a bucket of at most this
+# many pairs is sorted in shared memory (16 KB), a larger one in device
+# memory.  ebola175's largest bucket on 4 places holds 4 x 812.
+DEDUP_TILE = 4096
 
 
 @_build.on_own_device
@@ -270,9 +303,9 @@ def dedup_pairs(p, a):
     one pair twice).
 
     Replaces catch_tpu/ops/scan_instance.py _dedup_pairs_jit (:341-360)
-    where it runs apart from the expansion; the kernels are the
-    compaction pair of csrc/lookup_expand.cu (store bound), the sort is
-    torch.sort.
+    where it runs apart from the expansion; the kernels are
+    csrc/dedup_pairs.cu: the pairs bucketed by p, each bucket sorted
+    and deduplicated by a warp (up to 1,024 pairs) or a block.
     """
     _require(p, torch.int64, "p")
     _require(a, torch.int64, "a")
@@ -280,13 +313,50 @@ def dedup_pairs(p, a):
         raise ValueError("p and a must have one shape")
     if _on_cpu(p, a):
         return _dedup_pairs_plain(p, a)
-    keys = (p << 32) | a
-    if keys.numel():
-        dedup_pairs.launches += 1
-    return _unique_pairs(keys)
+    return _dedup_pairs_cuda(p, a, DEDUP_TILE)
 
 
 dedup_pairs.launches = 0
+
+
+def _dedup_pairs_cuda(p, a, tile, steps=None):
+    """dedup_pairs on the card, with buckets of up to `tile` pairs (a
+    power of two) sorted in shared memory; `steps` as in
+    _lookup_expand_cuda."""
+    if tile < 2 or tile & (tile - 1):
+        raise ValueError(f"tile {tile} is not a power of two above 1")
+    mark = steps.mark if steps is not None else _no_marks
+    dev = p.device
+    n = p.numel()
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
+    if n == 0:
+        return empty, empty.clone()
+    mark("start")
+    lib = _build.library()
+    stream = _build.stream_of(p)
+    max_p, max_a = _max_pair(lib, p, a, None, stream)
+    if not (0 <= max_p < _PAIR_KEY_LIMIT and 0 <= max_a < _PAIR_KEY_LIMIT):
+        raise ValueError("pairs must lie in [0, 2^31)")
+    n_b = max_p + 1
+    mark("bounds read")
+    ws32 = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    ws64 = torch.empty(4 * n_b, dtype=torch.int64, device=dev)
+
+    def run(p_out, a_out, emit):
+        _build.check(lib.ct_dd_run(
+            _build.ptr(p), _build.ptr(a), n, n_b, tile, _build.ptr(ws32),
+            _build.ptr(ws64), p_out, a_out, emit, stream), "dd_run")
+
+    run(None, None, 0)
+    mark("buckets and sorts")
+    total = int(ws64[-1])
+    mark("read")
+    p_out = torch.empty(total, dtype=torch.int64, device=dev)
+    a_out = torch.empty(total, dtype=torch.int64, device=dev)
+    run(_build.ptr(p_out), _build.ptr(a_out), 1)
+    dedup_pairs.launches += 1
+    mark("emit")
+    return p_out, a_out
 
 
 def _dedup_pairs_plain(p, a):
@@ -304,15 +374,20 @@ def lookup_ranges_plain(tbl_h, q):
 
 
 def _lookup_expand_plain(tbl_h, tbl_p, tbl_pos, q, s, sample0=0):
-    """Plain-PyTorch twin of lookup_expand."""
-    lo, cnt = lookup_ranges_plain(tbl_h, q)
-    sample = torch.repeat_interleave(
-        torch.arange(q.numel(), dtype=torch.int64, device=q.device), cnt)
-    first = (torch.cumsum(cnt, 0) - cnt)[sample]
-    r = lo[sample] + torch.arange(sample.numel(), dtype=torch.int64,
-                                  device=q.device) - first
-    keys = (tbl_p[r] << 32) | ((sample0 + sample) * s - tbl_pos[r])
-    keys = torch.unique_consecutive(torch.sort(keys, stable=True).values)
+    """Plain-PyTorch twin of lookup_expand, on the kernel's plan: the
+    samples sorted, each valid table row's run of equal sample hashes
+    found by searchsorted, the runs expanded and deduplicated."""
+    qs, qi = torch.sort(q, stable=True)
+    ok = tbl_h != HMAX
+    h, p, pos = tbl_h[ok], tbl_p[ok], tbl_pos[ok]
+    lo = torch.searchsorted(qs, h, side="left")
+    cnt = torch.searchsorted(qs, h, side="right") - lo
+    row = torch.repeat_interleave(
+        torch.arange(h.numel(), dtype=torch.int64, device=q.device), cnt)
+    j = lo[row] + torch.arange(row.numel(), dtype=torch.int64,
+                               device=q.device) - (torch.cumsum(cnt, 0)
+                                                   - cnt)[row]
+    keys = torch.unique((p[row] << 32) | ((sample0 + qi[j]) * s - pos[row]))
     return keys >> 32, keys & _MASK32
 
 

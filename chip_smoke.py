@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result line):
      against their plain-PyTorch twins on the card, on the inputs the
      ebola175 design gives them: outputs
      must be exactly equal; the median, min and max times of both from
-     CUDA events;
+     CUDA events; the raw hit count beside the pairs, and
+     lookup_expand's time split step by step;
   4. ebola5 (-pl 100 -m 0 -e 0) through catch_tpu_torch.cli.design on
      cuda; the probe set must equal tests/data/golden/ref_ebola5_m0.fasta;
   5. ebola175 (-pl 100 -m 2 -l 60 -e 50), the first 175 genomes of
@@ -99,7 +100,9 @@ Phases (any failure exits non-zero and prints no result line):
      their twins: exactly equal, every place's state included and all
      replicas equal; dedup_pairs on the pairs that the four places of
      phase 17's scan hand to the lead, against its twin and against one
-     torch.unique call; CUDA-event medians, min and max.
+     torch.unique of the packed keys (torch.unique over the (pair, 2)
+     rows and its step split printed beside); CUDA-event medians, min
+     and max.
 
 Each phase prints its wall seconds as it ends.  The line before the
 last is the card's name and power limit; the one before it a JSON
@@ -150,7 +153,6 @@ for _name in ("verify_spans", "verify_spans_sharded"):
     SOURCES[_name] = "catch_tpu_torch/csrc/verify_windows.cu"
 for _name in ("minhash_dists", "minhash_codes", "minhash_assign"):
     SOURCES[_name] = "catch_tpu_torch/csrc/minhash_caps.cu"
-SOURCES["dedup_pairs"] = "catch_tpu_torch/csrc/lookup_expand.cu"
 DESIGN_KERNELS = ["rolling_hash", "lookup_expand", "verify_windows",
                   "segmented_merge", "pack_merged"]
 SOLVER_KERNELS = ["assemble", "init_covered", "greedy_v2"]
@@ -321,6 +323,37 @@ def cuda_ms(torch, fn, reps, warm=True):
     return statistics.median(times), min(times), max(times)
 
 
+class Steps:
+    """CUDA events between the named steps of one call (a K2 wrapper's
+    `steps` argument)."""
+
+    def __init__(self, torch):
+        self.torch, self.marks = torch, []
+
+    def mark(self, name):
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.marks.append((name, e))
+
+    def split(self):
+        self.torch.cuda.synchronize()
+        return {name: a.elapsed_time(b) for (_, a), (name, b)
+                in zip(self.marks, self.marks[1:])}
+
+
+def step_split(torch, fn, reps=10):
+    """Median ms of each step of fn(steps) over reps calls after a
+    warm-up, as one printable string."""
+    fn(Steps(torch))
+    splits = []
+    for _ in range(reps):
+        st = Steps(torch)
+        fn(st)
+        splits.append(st.split())
+    return ", ".join(f"{k} {statistics.median(sp[k] for sp in splits):.4f}"
+                     for k in splits[0])
+
+
 def max_abs_err(torch, got, want):
     """Max |got - want| over tuples of tensors of equal shapes and types.
     A float32 pair that differs in any bit counts at least 1."""
@@ -420,8 +453,16 @@ def check_kernels(torch, device):
         mk, ms, me = fn(key, us, ue)
         return (mk, ms, me) + tuple(fn(mk % nU, ms, me))
 
-    print(f"ebola175 shapes: {int(q.numel())} sample hashes, "
-          f"{int(pc.numel())} candidate pairs, {int(key.numel())} spans",
+    qs, h = torch.sort(q).values, tbl_h[tbl_h != si.HMAX]
+    n_raw = int((torch.searchsorted(qs, h, right=True)
+                 - torch.searchsorted(qs, h)).sum())
+    del qs, h
+    print(f"ebola175 shapes: {int(q.numel())} sample hashes, {n_raw} raw "
+          f"hits, {int(pc.numel())} candidate pairs, {int(key.numel())} "
+          "spans", flush=True)
+    print("lookup_expand steps (ms, CUDA-event medians): " + step_split(
+        torch, lambda st: si._lookup_expand_cuda(tbl_h, tbl_p, tbl_pos, q,
+                                                 s, 0, steps=st)),
           flush=True)
     # Bytes (each input read once, each output written once) and
     # operations each function needs on these inputs: K1 two multiply-
@@ -1366,8 +1407,9 @@ def dedup_case(torch, device, n):
     the mesh-split ebola175 scan hand to the lead: each place's
     lookup_expand over its range of samples, joined in place order.  The
     function reads each pair once and writes each distinct pair once (16
-    bytes either way) and sorts them; one torch.unique over the (pair, 2)
-    rows computes the same."""
+    bytes either way) and sorts them; one torch.unique of the packed keys
+    (p << 32) | a computes the same (torch.unique over the (pair, 2) rows
+    too, printed on its own line)."""
     from catch_tpu_torch.ops import scan_instance as si
 
     x = kernel_inputs(torch, device)
@@ -1384,10 +1426,23 @@ def dedup_case(torch, device, n):
           f"{[q[0].numel() for q in pairs]}, {n_out} distinct", flush=True)
     del x, st, table, pairs
     rows2 = torch.stack((p, a), dim=1)
+    ms_rows = cuda_ms(torch, lambda: torch.unique(rows2, dim=0), 5)[0]
+    del rows2
+    print(f"dedup_pairs: torch.unique(dim=0) over the (pair, 2) rows "
+          f"{ms_rows:.3f} ms", flush=True)
+    print("dedup_pairs steps (ms, CUDA-event medians): " + step_split(
+        torch, lambda st: si._dedup_pairs_cuda(p, a, si.DEDUP_TILE,
+                                               steps=st)), flush=True)
+    keys = (p << 32) | a
+
+    def packed_unique():
+        k = torch.unique(keys)
+        return k >> 32, k & 0xFFFFFFFF
+
     return ("dedup_pairs", lambda f: f(p, a), si._dedup_pairs_plain,
             si.dedup_pairs, 10,
             (16 * (n_in + n_out), n_in * max(1, (n_in - 1).bit_length())),
-            lambda: torch.unique(rows2, dim=0).unbind(1))
+            packed_unique)
 
 
 def main():
@@ -1448,7 +1503,7 @@ def main():
     design_kernels = [r["name"] for r in rows]
     out175 = os.path.join(WORK, "ebola175_m2.fasta")
     in175 = write_subset(175)
-    pb, wall, launches, _ = counted(torch, si, profiling, lambda: design(
+    pb, wall, launches, peak = counted(torch, si, profiling, lambda: design(
         [in175, "-o", out175, "-pl", "100", "-m", "2", "-l", "60", "-e",
          "50", "--device", "cuda"]))
     with open(out175, "rb") as a, open(
@@ -1458,7 +1513,8 @@ def main():
     stats = pb.filters[-1].last_run_stats
     print(f"ebola175 m2: {len(pb.final_probes)} probes, equal to golden; "
           f"wall {wall:.3f} s; {stats['candidates_evaluated']} candidates; "
-          f"{stats['set_cover_picks']} picks", flush=True)
+          f"{stats['set_cover_picks']} picks; peak allocated device memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
     stats5 = (stats["candidates_evaluated"], stats["set_cover_picks"])
     print_phases(profiling, ("candidate", "filter", "set_cover", "scan"))
     print(f"launches in the ebola175 run: {launches}", flush=True)

@@ -142,6 +142,105 @@ def test_empty_inputs(cuda):
     assert p.numel() == a.numel() == 0
 
 
+CODE = {"A": 1, "C": 2, "G": 3, "T": 4}
+
+
+def _codes(seq):
+    return np.array([CODE[c] for c in seq], dtype=np.uint8)
+
+
+def _k2_case(cuda, probes, corpus, kj, s, sample0=0):
+    """lookup_expand against its twin on probes (strings of one length)
+    and a corpus string behind a pad of L + kj codes; returns the pairs
+    and the raw hit count."""
+    L = len(probes[0])
+    codes = torch.from_numpy(np.stack([_codes(x) for x in probes])).to(cuda)
+    mega = np.concatenate([np.zeros(L + kj, np.uint8), _codes(corpus),
+                           np.zeros(L + s + kj, np.uint8)])
+    total = L + kj + len(corpus)
+    n = -(-total // s) - sample0
+    mega_t = torch.from_numpy(mega).to(cuda)
+    q = si.rolling_hash(mega_t[sample0 * s:], n, s, kj,
+                        total - kj - sample0 * s)
+    tbl = si.build_table(codes, kj)
+    si.reset_launches()
+    got = si.lookup_expand(*tbl, q, s, sample0=sample0)
+    torch.cuda.synchronize()
+    assert si.lookup_expand.launches == 1
+    _assert_equal(got, si._lookup_expand_plain(*tbl, q, s, sample0))
+    qs = torch.sort(q).values
+    h = tbl[0][tbl[0] != si.HMAX]
+    raw = int((torch.searchsorted(qs, h, right=True)
+               - torch.searchsorted(qs, h)).sum())
+    return got, raw
+
+
+def _random_seq(rng, n):
+    return "".join(rng.choice(BASES, size=n))
+
+
+@pytest.mark.parametrize("sample0", [0, 1, 777])
+def test_lookup_expand_sample_offset(cuda, sample0):
+    """A later range of the samples (the mesh's places): alignments
+    from corpus sample sample0 + g."""
+    rng = np.random.default_rng(3)
+    corpus = _random_seq(rng, 20_000)
+    probes = [corpus[i:i + 100] for i in range(0, 19_900, 150)]
+    (p, a), raw = _k2_case(cuda, probes, corpus, 12, 9, sample0=sample0)
+    assert p.numel() > 0 and raw >= p.numel()
+
+
+def test_lookup_expand_repeated_kmers_and_poly_a(cuda):
+    """Probes that repeat a kj-mer (a tandem repeat, and poly-A) against
+    a corpus with a poly-A run of over 10,000 samples: one sample run
+    holds them all, and the poly-A probe has over 100,000 raw hits."""
+    rng = np.random.default_rng(5)
+    corpus = (_random_seq(rng, 5000) + "A" * 95_000 + _random_seq(rng, 3000)
+              + "ACGT" * 200 + _random_seq(rng, 2000))
+    probes = ["A" * 100, "ACGT" * 25, corpus[100:200], corpus[4950:5050],
+              _random_seq(rng, 100)]
+    (p, a), raw = _k2_case(cuda, probes, corpus, 12, 9)
+    assert raw > 100_000
+    n_poly = int((p == 0).sum())
+    assert n_poly > 10_000
+    assert torch.equal(a[:n_poly], torch.sort(a[:n_poly]).values)
+
+
+def test_lookup_expand_no_hits_single_probe_and_sentinels(cuda):
+    """Probes with no hit beside one with hits; a single probe; samples
+    that are all HMAX."""
+    rng = np.random.default_rng(8)
+    corpus = _random_seq(rng, 8000)
+    probes = [_random_seq(rng, 100) for _ in range(6)] + [corpus[500:600]]
+    (p, a), _ = _k2_case(cuda, probes, corpus, 12, 9)
+    assert set(p.tolist()) == {6}
+    (p, a), _ = _k2_case(cuda, [corpus[2000:2100]], corpus, 12, 9)
+    assert p.numel() > 0 and set(p.tolist()) == {0}
+    tbl = si.build_table(torch.from_numpy(_codes(corpus[:1000]).reshape(
+        10, 100)).to(cuda), 12)
+    q = torch.full((5000,), si.HMAX, dtype=torch.int64, device=cuda)
+    p, a = si.lookup_expand(*tbl, q, 9)
+    assert p.numel() == a.numel() == 0
+
+
+@pytest.mark.parametrize("L", [50, 200, 300])
+def test_lookup_expand_long_probes(cuda, L):
+    """Offsets a lane holds in registers: L = 50 two, L = 200 (189
+    offsets a probe) eight; L = 300: 289 offsets, above the registers'
+    256, merged in scratch."""
+    rng = np.random.default_rng(13)
+    base = rng.choice(BASES, size=12_000)
+    corpus = "".join(base)
+    for _ in range(3):
+        m = rng.random(len(base)) < 0.02
+        mut = base.copy()
+        mut[m] = rng.choice(BASES, size=int(m.sum()))
+        corpus += "".join(mut)
+    probes = [corpus[i:i + L] for i in range(0, 11_700, 97)]
+    (p, a), raw = _k2_case(cuda, probes, corpus, 12, 9)
+    assert raw > p.numel() > len(probes)
+
+
 @pytest.mark.parametrize("b_pos,n", [(2, 1), (2, 5000), (3, 70000),
                                      (4, 1 << 20)])
 def test_pack_merged_equals_twin(cuda, b_pos, n):
@@ -703,19 +802,26 @@ def test_verify_spans_sharded_equals_verify_spans(places8, n, keep):
     assert ss.verify_spans.launches == 0
 
 
+@pytest.mark.parametrize("tile", [None, 64], ids=["tile_default",
+                                                 "tile64"])
 @pytest.mark.parametrize("n_pairs,n_probes,span", [(0, 5, 50), (1, 5, 50),
                                                   (200_000, 400, 300),
-                                                  (50_000, 3, 2 ** 31 - 1)])
-def test_dedup_pairs_equals_twin(cuda, n_pairs, n_probes, span):
+                                                  (50_000, 3, 2 ** 31 - 1),
+                                                  (60_000, 20, 5000)])
+def test_dedup_pairs_equals_twin(cuda, n_pairs, n_probes, span, tile):
     """The lead's dedup on the card against its twin and numpy: sorted
     by (probe, alignment), every pair once; an empty input launches
-    nothing."""
+    nothing.  Buckets of up to 1,024 pairs are sorted by a warp, larger
+    ones up to the tile by a block in shared memory (60,000 pairs in 20
+    buckets), larger still by the radix sort in device memory (the tile
+    forced to 64 entries, and 3 buckets of about 16,700)."""
     rng = np.random.default_rng(n_pairs)
     p = rng.integers(0, n_probes, size=n_pairs)
     a = rng.integers(max(0, span - 300), span + 1, size=n_pairs)
     pt, at = torch.from_numpy(p).to(cuda), torch.from_numpy(a).to(cuda)
     si.reset_launches()
-    got = si.dedup_pairs(pt, at)
+    got = (si.dedup_pairs(pt, at) if tile is None
+           else si._dedup_pairs_cuda(pt, at, tile))
     torch.cuda.synchronize()
     assert si.dedup_pairs.launches == (1 if n_pairs else 0)
     assert si.lookup_expand.launches == 0
@@ -724,6 +830,30 @@ def test_dedup_pairs_equals_twin(cuda, n_pairs, n_probes, span):
     assert n_pairs < 50_000 or len(want) < n_pairs
     assert np.array_equal(got[0].cpu().numpy(), want[:, 0])
     assert np.array_equal(got[1].cpu().numpy(), want[:, 1])
+
+
+@pytest.mark.parametrize("tile", [si.DEDUP_TILE, 64])
+def test_dedup_pairs_one_pair_repeated(cuda, tile):
+    """One pair a million times: one bucket far above either tile, all
+    of it one run."""
+    pt = torch.full((1_000_000,), 7, dtype=torch.int64, device=cuda)
+    at = torch.full((1_000_000,), 2 ** 31 - 2, dtype=torch.int64,
+                    device=cuda)
+    got = si._dedup_pairs_cuda(pt, at, tile)
+    _assert_equal(got, si._dedup_pairs_plain(pt, at))
+    assert got[0].tolist() == [7] and got[1].tolist() == [2 ** 31 - 2]
+
+
+def test_dedup_pairs_empty_and_out_of_range(cuda):
+    e = torch.empty(0, dtype=torch.int64, device=cuda)
+    si.reset_launches()
+    assert all(x.numel() == 0 for x in si.dedup_pairs(e, e.clone()))
+    assert si.dedup_pairs.launches == 0
+    one = torch.ones(3, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="2\\^31"):
+        si.dedup_pairs(one, one * (2 ** 31))
+    with pytest.raises(ValueError, match="power of two"):
+        si._dedup_pairs_cuda(one, one, 48)
 
 
 @pytest.mark.parametrize("n", [2, 4])

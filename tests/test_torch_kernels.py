@@ -209,6 +209,64 @@ def test_lookup_expand_matches_lookup_and_stage_b():
     assert min(ac.tolist()) >= 1            # the leading pad
 
 
+def _low_complexity_genomes(rng):
+    """Genomes with a poly-A run and a tandem repeat: probes that repeat
+    a kj-mer, and samples in long runs of equal hashes."""
+    base = rng.choice(BASES, size=1000)
+    base[200:500] = "A"
+    base[600:760] = list("ACGT" * 40)
+    return [["".join(_mutate(rng, base, 0.01))] for _ in range(4)]
+
+
+@pytest.mark.parametrize("low_complexity,g0_sevenths", [
+    (False, 3), (True, 0), (True, 5)],
+    ids=["sample0", "low_complexity", "low_complexity_sample0"])
+def test_lookup_expand_matches_stage_b_hard_inputs(low_complexity,
+                                                   g0_sevenths):
+    """The twin's inverted plan (samples sorted, each probe offset's run
+    found by searchsorted) against _lookup_jit + _stage_b_jit over the
+    samples from g0 on: at a nonzero g0 (lookup_expand's sample0), and
+    on low-complexity probes."""
+    rng = np.random.default_rng(23)
+    sc = Scan(_low_complexity_genomes(rng) if low_complexity
+              else _genomes(rng, 4, 1000), dict(mismatches=2, lcf_thres=60))
+    n_all = -(-sc.total // sc.s)
+    g0 = n_all * g0_sevenths // 7
+    Q = sj._next_pow2(n_all - g0)
+    mega = sc.mega(g0 + Q)
+    n_last = sc.total - sc.kj
+    jh, jp, jpos = sc.jax_table()
+    jq = sj._hash_samples_jit(jnp.asarray(mega), jnp.int32(g0),
+                              jnp.int32(n_last), kj=sc.kj, s=sc.s, Q=Q)
+    lo, cnt, _, _, _ = sj._lookup_jit(jh, jq, full=True,
+                                      rounds=sj._LK_ROUNDS)
+    T = sj._next_pow2(int(np.asarray(cnt).sum()))
+    p, a, n = sj._stage_b_jit(lo, cnt, jnp.int32(g0), jnp.int32(0),
+                              jnp.int32(Q), jp, jpos, T=T, Q=Q, CAP=T,
+                              s=sc.s)
+    n = int(n)
+    want = list(zip(np.asarray(p)[:n].tolist(), np.asarray(a)[:n].tolist()))
+
+    tbl = si.build_table(sc.st["codes"], sc.kj)
+    tq = si.rolling_hash(torch.from_numpy(mega[g0 * sc.s:]), Q, sc.s, sc.kj,
+                         n_last - g0 * sc.s)
+    pc, ac = si.lookup_expand(*tbl, tq, sc.s, sample0=g0)
+    assert list(zip(pc.tolist(), ac.tolist())) == want
+    assert n > 0
+    if low_complexity:
+        h = tq[tq != si.HMAX]
+        assert int(torch.unique(h, return_counts=True)[1].max()) >= 20
+        rows = tbl[0] != si.HMAX
+        pairs = set(zip(tbl[0][rows].tolist(), tbl[1][rows].tolist()))
+        assert len(pairs) < int(rows.sum())   # a probe repeats a kj-mer
+
+
+def test_lookup_expand_alignment_limit():
+    q = torch.zeros(10, dtype=torch.int64)
+    with pytest.raises(ValueError, match="31-bit"):
+        si.lookup_expand(q, q, q, q, 2 ** 28, sample0=0)
+
+
 # ----------------------------------------------------------------------
 # K3 verify_windows
 # ----------------------------------------------------------------------
