@@ -63,10 +63,9 @@ _SIGNATURES = {
                              _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P],
     "ct_expand_join": [_P, _P, _P, _P, _I64, _P, _P, _I64, _P, _P],
     "ct_join_emit": [_P, _P, _P, _I64, _I64, _P, _P, _P],
-    "ct_merge_block_scan": [_P, _P, _I64, _P, _P, _P, _P, _P],
-    "ct_merge_carry": [_P, _P, _I64, _P, _P],
-    "ct_merge_fixup": [_P, _P, _P, _I64, _P, _P, _P],
-    "ct_merge_emit": [_P, _P, _P, _P, _I64, _P, _P, _P, _P],
+    "ct_sm_bounds": [_P, _P, _P, _I64, _P, _P],
+    "ct_sm_run": [_P, _P, _P, _I64, _I64, _I32, _I64, _I32, _I32, _I32, _I32,
+                  _P, _P, _P, _P, _P, _P, _I32, _P],
     "ct_minhash_dists": [_P, _I64, _P, _I64, _I32, _P, _P],
     "ct_minhash_codes": [_P, _I64, _P, _I64, _I32, _I32, _I32, _P, _P],
     "ct_minhash_caps": [_P, _I64, _P, _I64, _I32, _I32, _P, _P],

@@ -580,62 +580,157 @@ def windows_plain(mega, codes, p, a, start, ov, thres, n_seq, *, K, k_seed,
 # K4 segmented_merge (stage D)
 # ----------------------------------------------------------------------
 
-_MERGE_BLOCK = 1024   # rows per block scan (CT_MB in the kernel)
+# Rows of segmented_merge's shared-memory block tier (32-bit words; half
+# as many with 64-bit words): a bucket of at most this many rows is
+# sorted and merged by one block in dynamic shared memory (32 KB of
+# digit counts and two buffers, 224 KB), a larger one in device memory.
+# ebola175's union has a universe of 18,000-odd rows a bucket.
+MERGE_TILE = 24576
+_MERGE_WARP_TILE = 512         # SM_WARP_TILE in the kernel
+_MERGE_ROWS_PER_BUCKET = 128   # the bucket count's target: n / this
+_MERGE_SCAN_TILE = 4096        # SM_SCAN_TILE in the kernel
+_MERGE_SMEM = 232448           # shared memory a block may have
+_MERGE_COUNTS_BYTES = 16 * 1024 * 2  # the block tier's digit counts
 
 
 @_build.on_own_device
 def segmented_merge(key, start, end):
     """Merge overlapping or touching [start, end) spans per key.
 
-    key, start, end: int64 with 0 <= key < 2^31 and 0 <= start < 2^32
-    (they share one packed sort key).  Returns (key, start, end) of the
-    merged runs, sorted by (key, start).
+    key, start, end: int64 with 0 <= key < 2^31, 0 <= start <= end <
+    2^32; a row outside raises ValueError (on both routes).  Returns
+    (key, start, end) of the merged runs, sorted by (key, start).
+
+    end >= start makes the result independent of how rows that share
+    (key, start) are ordered.  Every caller gives it: verify_windows'
+    and verify_spans' windows lie inside their chromosome, the cover
+    extension widens them both ways and the clamp keeps 0 <= start <=
+    end <= the chromosome's length; the union gets merged rows, whose
+    end is a running max over rows of that start or before.
 
     Replaces catch_tpu/ops/scan_instance.py _merge_jit/_merge_runs
     (:537-590) and, called on key % nU, _union_jit (:593-597); the
-    kernels are csrc/segmented_merge.cu (bandwidth bound), the sort and
-    the run numbering are torch.sort and torch.cumsum.
+    kernels are csrc/segmented_merge.cu: the rows bucketed by ranges of
+    whole keys, each bucket sorted and merged in shared memory by a
+    warp or a block (in device memory above MERGE_TILE rows), with no
+    library sort.
     """
     for t, name in ((key, "key"), (start, "start"), (end, "end")):
         _require(t, torch.int64, name)
+    if key.shape != start.shape or key.shape != end.shape:
+        raise ValueError("key, start and end must have one shape")
     if _on_cpu(key, start, end):
+        if key.numel():
+            _check_merge_bounds(int(key.min()), int(key.max()),
+                                int(start.min()), int(start.max()),
+                                int(end.max()), bool((end < start).any()))
         return _segmented_merge_plain(key, start, end)
+    return _segmented_merge_cuda(key, start, end, MERGE_TILE)
+
+
+segmented_merge.launches = 0
+
+
+def _check_merge_bounds(kmin, kmax, smin, smax, emax, end_before_start):
+    if not (0 <= kmin and kmax < _PAIR_KEY_LIMIT):
+        raise ValueError("segmented_merge keys must lie in [0, 2^31)")
+    if not (0 <= smin and smax <= _MASK32 and emax <= _MASK32):
+        raise ValueError("segmented_merge starts and ends must lie in "
+                         "[0, 2^32)")
+    if end_before_start:
+        raise ValueError("segmented_merge needs end >= start on every row")
+
+
+def _merge_plan(n, kmin, kmax, smax, tile):
+    """How segmented_merge buckets n rows with keys in [kmin, kmax] and
+    starts up to smax: the smallest shift that keeps the bucket count
+    ((kmax - kmin) >> shift) + 1 at n / 128 or below, capped so that a
+    bucket word sk << ib | row fits 64 bits (sk = key offset << sb |
+    start); 32-bit words where it fits 32."""
+    sb = max(1, smax.bit_length())
+    ib = max(9, (tile - 1).bit_length())   # the warp tier's index: 9 bits
+    target = max(1, n // _MERGE_ROWS_PER_BUCKET)
+    span = kmax - kmin
+    shift = 0
+    while (span >> shift) + 1 > target:
+        shift += 1
+    shift = min(shift, 64 - sb - ib)
+    word32 = shift + sb + ib <= 32
+    return dict(shift=shift, n_b=(span >> shift) + 1, sb=sb, ib=ib,
+                word32=word32, tile=tile if word32 else tile // 2)
+
+
+def merge_tiers(key, start, end, tile=MERGE_TILE):
+    """The plan segmented_merge makes for these rows, with the number of
+    buckets each tier takes (single: at most one row; warp; block;
+    device: above the block tier's rows) and the largest bucket; {} for
+    no rows."""
+    if key.numel() == 0:
+        return {}
+    plan = _merge_plan(key.numel(), int(key.min()), int(key.max()),
+                       int(start.max()), tile)
+    m = torch.bincount((key - int(key.min())) >> plan["shift"],
+                       minlength=plan["n_b"])
+    wt = min(_MERGE_WARP_TILE, plan["tile"])
+    return dict(plan, largest=int(m.max()),
+                single=int((m <= 1).sum()),
+                warp=int(((m > 1) & (m <= wt)).sum()),
+                block=int(((m > wt) & (m <= plan["tile"])).sum()),
+                device=int((m > plan["tile"]).sum()))
+
+
+def _segmented_merge_cuda(key, start, end, tile, steps=None):
+    """segmented_merge on the card, with buckets of up to `tile` rows
+    (32-bit words) merged by a block in shared memory; `steps` as in
+    _lookup_expand_cuda."""
+    top = (_MERGE_SMEM - _MERGE_COUNTS_BYTES - 1024) // 8
+    if not 2 <= tile <= top:
+        raise ValueError(f"tile {tile} is not in [2, {top}]")
+    mark = steps.mark if steps is not None else _no_marks
     dev = key.device
     n = key.numel()
     if n == 0:
         return key.clone(), start.clone(), end.clone()
+    mark("start")
     lib = _build.library()
     stream = _build.stream_of(key)
-    sp, order = torch.sort((key << 32) | start, stable=True)
-    nb = -(-n // _MERGE_BLOCK)
-    local = torch.empty(n, dtype=torch.int64, device=dev)
-    agg_head = torch.empty(nb, dtype=torch.int32, device=dev)
-    agg_v = torch.empty(nb, dtype=torch.int64, device=dev)
-    carry = torch.empty(nb, dtype=torch.int64, device=dev)
-    rmax = torch.empty(n, dtype=torch.int64, device=dev)
-    flags = torch.empty(n, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_merge_block_scan(
-        _build.ptr(sp), _build.ptr(order), n, _build.ptr(end),
-        _build.ptr(local), _build.ptr(agg_head), _build.ptr(agg_v), stream),
-        "merge_block_scan")
-    _build.check(lib.ct_merge_carry(_build.ptr(agg_head), _build.ptr(agg_v),
-                                    nb, _build.ptr(carry), stream),
-                 "merge_carry")
-    _build.check(lib.ct_merge_fixup(
-        _build.ptr(sp), _build.ptr(local), _build.ptr(carry), n,
-        _build.ptr(rmax), _build.ptr(flags), stream), "merge_fixup")
-    pos = torch.cumsum(flags, 0)
-    n_runs = int(pos[-1])
-    out = [torch.empty(n_runs, dtype=torch.int64, device=dev)
-           for _ in range(3)]
-    _build.check(lib.ct_merge_emit(
-        _build.ptr(sp), _build.ptr(rmax), _build.ptr(flags), _build.ptr(pos),
-        n, *[_build.ptr(x) for x in out], stream), "merge_emit")
+    out = torch.empty(5, dtype=torch.int64, device=dev)
+    _build.check(lib.ct_sm_bounds(_build.ptr(key), _build.ptr(start),
+                                  _build.ptr(end), n, _build.ptr(out),
+                                  stream), "sm_bounds")
+    nkmin, kmax, smax, emax, bad = out.tolist()
+    # the maxima are unsigned: a negative value reads as negative here
+    kmin = ~nkmin if nkmin < 0 else -1
+    _check_merge_bounds(kmin, kmax if kmax >= 0 else 1 << 63, 0,
+                        smax if smax >= 0 else 1 << 63,
+                        emax if emax >= 0 else 1 << 63, bad)
+    plan = _merge_plan(n, kmin, kmax, smax, tile)
+    n_b = plan["n_b"]
+    mark("bounds read")
+    ws64 = torch.empty(2 * n, dtype=torch.int64, device=dev)
+    ws32 = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    wsb = torch.empty(5 * n_b + 2 + -(-n_b // _MERGE_SCAN_TILE),
+                      dtype=torch.int64, device=dev)
+
+    def run(outs, phase):
+        _build.check(lib.ct_sm_run(
+            _build.ptr(key), _build.ptr(start), _build.ptr(end), n, kmin,
+            plan["shift"], n_b, plan["sb"], plan["ib"], plan["tile"],
+            int(plan["word32"]), _build.ptr(ws64), _build.ptr(ws32),
+            _build.ptr(wsb), *outs, phase, stream), "sm_run")
+
+    run((None, None, None), 0)
+    mark("buckets")
+    run((None, None, None), 1)
+    mark("sorts and merges")
+    total = int(wsb[4 * n_b - 1])
+    mark("read")
+    res = tuple(torch.empty(total, dtype=torch.int64, device=dev)
+                for _ in range(3))
+    run(tuple(_build.ptr(x) for x in res), 2)
     segmented_merge.launches += 1
-    return tuple(out)
-
-
-segmented_merge.launches = 0
+    mark("emit")
+    return res
 
 
 def _segmented_merge_plain(key, start, end):

@@ -12,8 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
      against their plain-PyTorch twins on the card, on the inputs the
      ebola175 design gives them: outputs
      must be exactly equal; the median, min and max times of both from
-     CUDA events; the raw hit count beside the pairs, and
-     lookup_expand's time split step by step;
+     CUDA events; the raw hit count beside the pairs, lookup_expand's
+     time split step by step, segmented_merge's for both calls of stage
+     D (the pair merge and the union) with the buckets each tier took,
+     and stage D's peak device memory above its inputs;
   4. ebola5 (-pl 100 -m 0 -e 0) through catch_tpu_torch.cli.design on
      cuda; the probe set must equal tests/data/golden/ref_ebola5_m0.fasta;
   5. ebola175 (-pl 100 -m 2 -l 60 -e 50), the first 175 genomes of
@@ -31,7 +33,8 @@ Phases (any failure exits non-zero and prints no result line):
      -ps 50) against a 100 Mbp background with planted ebola pieces,
      under SetCoverFilter(mismatches=2, lcf_thres=60,
      cover_extension=50), counting launches; the ranks must equal
-     tests/data/golden/avoid100m_ranks.tsv;
+     tests/data/golden/avoid100m_ranks.tsv; the buckets each tier of
+     segmented_merge took in each of its calls;
   9. catch_tpu_torch.cli.analyze_probe_coverage on ebola175 with the
      probes of torch_ebola175_m2.fasta (-m 2 -l 60 -e 50) on cuda,
      counting launches; both TSVs must equal their goldens;
@@ -464,6 +467,24 @@ def check_kernels(torch, device):
         torch, lambda st: si._lookup_expand_cuda(tbl_h, tbl_p, tbl_pos, q,
                                                  s, 0, steps=st)),
           flush=True)
+    mk, ms, me = si._segmented_merge_plain(key, us, ue)
+    for what, rows in (("pair merge", (key, us, ue)),
+                       ("union", (mk % nU, ms, me))):
+        print(f"segmented_merge steps, {what} (ms, CUDA-event medians): "
+              + step_split(torch, lambda st, rows=rows:
+                           si._segmented_merge_cuda(*rows, si.MERGE_TILE,
+                                                    steps=st)), flush=True)
+        print(f"segmented_merge tiers, {what}: {si.merge_tiers(*rows)}",
+              flush=True)
+    del mk, ms, me
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k4(si.segmented_merge)
+    torch.cuda.synchronize()
+    print("segmented_merge: stage D's peak (both calls) "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB "
+          "above its inputs", flush=True)
     # Bytes (each input read once, each output written once) and
     # operations each function needs on these inputs: K1 two multiply-
     # adds per code of each window; K2 a binary search per sample and a
@@ -1535,10 +1556,17 @@ def main():
 
     # Phase 8: the avoid scan at real size, counting launches.
     want, n_flagged = expected_ranks(len(cands))
-    ranks, wall, launches, peak = counted(
-        torch, si, profiling, lambda: scf._make_ranks(cands, [genomes8]))
+    tiers = []   # a few ms of the wall: the inputs are not kept
+    with recording(si, "_segmented_merge_cuda", lambda args, kwargs, res:
+                   tiers.append((int(args[0].numel()),
+                                 si.merge_tiers(*args[:3])))):
+        ranks, wall, launches, peak = counted(
+            torch, si, profiling, lambda: scf._make_ranks(cands, [genomes8]))
     if not (ranks == want).all():
         fail("avoid ranks differ from avoid100m_ranks.tsv")
+    for i, (n, t) in enumerate(tiers):
+        print(f"segmented_merge tiers, avoid call {i + 1} of {len(tiers)}: "
+              f"{n} rows, {t}", flush=True)
     print(f"avoid 100 Mbp: ranks equal to golden ({len(cands)} candidates, "
           f"{n_flagged} flagged); wall {wall:.3f} s; "
           f"{2 * AVOID_BG_BP / wall:.0f} bp/s over both strands; peak "

@@ -9,8 +9,9 @@ runs there without tests/conftest.py (which imports jax):
 
 The inputs cover the paths the smoke run (chip_smoke.py) does not: the
 window fast path, islands, several chromosomes, sequences shorter than
-the probes, merge groups that cross the kernel's 1024-row blocks at
-every boundary case, the span scan without minimizers (w = 1) and in
+the probes, merge buckets of every tier (the block tier forced small),
+ties, touching and nested spans, the ends of the key and position
+ranges, the span scan without minimizers (w = 1) and in
 many expansion slabs, and empty inputs.  Every comparison is exact.
 """
 
@@ -118,8 +119,9 @@ def test_kernels_equal_twins(cuda, model_kw, ext, n_chrs, short, k_seed):
 @pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 2049, 5000,
                                (1 << 20) + 1025])
 def test_segmented_merge_block_boundaries(cuda, n):
-    """Groups that start, end and run across the 1024-row blocks, and
-    (at the largest n) more block aggregates than one carry chunk."""
+    """Sorted groups of every size from one row up, with long spans that
+    swallow their group: buckets of every tier, and (at the largest n)
+    over a thousand of them."""
     rng = np.random.default_rng(n)
     k = np.sort(rng.integers(0, max(1, n // 3000), size=n))
     s = rng.integers(0, 1 << 20, size=n)
@@ -129,6 +131,110 @@ def test_segmented_merge_block_boundaries(cuda, n):
     k, s, e = (torch.from_numpy(x).to(cuda) for x in (k, s, e))
     _assert_equal(si.segmented_merge(k, s, e),
                   si._segmented_merge_plain(k, s, e))
+
+
+def _merge_case(case, rng):
+    """(key, start, end) numpy rows of one segmented_merge card case."""
+    if case == "random_order":
+        n = 200_000
+        k = rng.integers(0, 5000, size=n)
+        s = rng.integers(0, 1 << 20, size=n)
+        e = s + rng.integers(0, 500, size=n)
+    elif case == "ties_and_duplicates":
+        bk = rng.integers(0, 2000, size=20_000)
+        bs = rng.integers(0, 100_000, size=20_000)
+        pick = rng.integers(0, 20_000, size=150_000)
+        k, s = bk[pick], bs[pick]
+        e = s + rng.integers(0, 300, size=pick.size)
+        k, s, e = (np.concatenate([x, x[:30_000]]) for x in (k, s, e))
+    elif case == "touching":
+        s = np.cumsum(rng.integers(1, 40, size=100_000))
+        e = np.concatenate([s[1:], [s[-1] + 7]])
+        e[::1000] = s[::1000]               # a few empty spans
+        k = np.repeat(np.arange(100), 1000)
+    elif case == "nested":
+        os_ = rng.integers(0, 1 << 24, size=50_000)
+        oe = os_ + rng.integers(1000, 5000, size=50_000)
+        ins = os_ + rng.integers(0, 500, size=50_000)
+        ine = np.minimum(ins + rng.integers(0, 400, size=50_000), oe)
+        k = np.tile(rng.integers(0, 3000, size=50_000), 2)
+        s, e = np.concatenate([os_, ins]), np.concatenate([oe, ine])
+    elif case == "keys_to_2^31":
+        n = 100_000
+        k = rng.integers(0, 2 ** 31 - 1, size=n)
+        k[:1000] = 2 ** 31 - 1
+        k[1000:2000] = 0
+        s = rng.integers(0, 1 << 16, size=n)
+        e = s + rng.integers(0, 3000, size=n)
+    elif case == "starts_near_2^32":
+        n = 100_000
+        k = rng.integers(0, 300, size=n)
+        s = rng.integers(2 ** 32 - 200_000, 2 ** 32 - 1, size=n)
+        e = np.minimum(s + rng.integers(0, 500, size=n), 2 ** 32 - 1)
+        s[:50] = 2 ** 32 - 1
+        e[:50] = 2 ** 32 - 1
+    elif case == "one_key_1m_rows":
+        n = 1_000_000
+        k = np.full(n, 12345)
+        s = rng.integers(0, 1 << 30, size=n)
+        e = s + rng.integers(0, 2000, size=n)
+    elif case == "union_shape":
+        k = np.tile(np.arange(175), 18_000)
+        s = rng.integers(0, 18_900, size=k.size)
+        e = np.minimum(s + rng.integers(0, 200, size=k.size), 18_959)
+    elif case == "avoid_shape":
+        p = np.repeat(np.arange(2309), 40)
+        strand = rng.integers(0, 2, size=p.size)
+        k = p * 2 + strand
+        s = rng.integers(0, 25_000_000, size=p.size)
+        e = s + rng.integers(60, 200, size=p.size)
+    else:   # one row
+        k, s = np.array([7]), np.array([2 ** 32 - 2])
+        e = s + 1
+    order = rng.permutation(len(k))
+    return k[order], s[order], e[order]
+
+
+@pytest.mark.parametrize("tile", [None, 64], ids=["tile_default",
+                                                 "tile64"])
+@pytest.mark.parametrize("case", [
+    "random_order", "ties_and_duplicates", "touching", "nested",
+    "keys_to_2^31", "starts_near_2^32", "one_key_1m_rows", "union_shape",
+    "avoid_shape", "one_row"])
+def test_segmented_merge_cases_equal_twin(cuda, case, tile):
+    """The bucket route against its twin, at the default tile and with
+    the block tier forced down to 64 rows (so that buckets go to the
+    radix sort in device memory): one launch a call, exactly equal."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    k, s, e = (torch.from_numpy(x.astype(np.int64)).to(cuda)
+               for x in _merge_case(case, rng))
+    si.reset_launches()
+    got = (si.segmented_merge(k, s, e) if tile is None
+           else si._segmented_merge_cuda(k, s, e, tile))
+    torch.cuda.synchronize()
+    assert si.segmented_merge.launches == 1
+    want = si._segmented_merge_plain(k, s, e)
+    _assert_equal(got, want)
+    assert all(x.dtype == torch.int64 for x in got)
+
+
+@pytest.mark.parametrize("bad", ["key_2^31", "start_2^32", "end_before_start"])
+def test_segmented_merge_rejects_rows_out_of_range(cuda, bad):
+    k = torch.tensor([0, 5, 9], dtype=torch.int64, device=cuda)
+    s = torch.tensor([10, 20, 30], dtype=torch.int64, device=cuda)
+    e = torch.tensor([15, 25, 35], dtype=torch.int64, device=cuda)
+    if bad == "key_2^31":
+        k[1] = 1 << 31
+    elif bad == "start_2^32":
+        s[2], e[2] = 1 << 32, 1 << 32
+    else:
+        e[1] = 19
+    si.reset_launches()
+    with pytest.raises(ValueError, match="segmented_merge"):
+        si.segmented_merge(k, s, e)
+    with pytest.raises(ValueError, match="segmented_merge"):
+        si._segmented_merge_cuda(k, s, e, 64)
+    assert si.segmented_merge.launches == 0
 
 
 def test_empty_inputs(cuda):

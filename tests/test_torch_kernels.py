@@ -388,6 +388,131 @@ def test_segmented_merge_matches_merge_and_union_jit():
     assert np.array_equal(te.numpy(), np.asarray(ue)[:nr])
 
 
+def _jax_union(merged, nU):
+    """_union_jit on merged rows (numpy), padded as catch_tpu pads."""
+    W = sj._next_pow2(len(merged[0]))
+    pad = W - len(merged[0])
+    uk, us, ue, nr = sj._union_jit(
+        jnp.asarray(np.concatenate([merged[0], np.full(pad, I32MAX)])
+                    .astype(np.int32)),
+        jnp.asarray(np.concatenate([merged[1], np.zeros(pad)])
+                    .astype(np.int32)),
+        jnp.asarray(np.concatenate([merged[2], np.zeros(pad)])
+                    .astype(np.int32)), jnp.int32(nU), OUT=W)
+    nr = int(nr)
+    return tuple(np.asarray(x)[:nr].astype(np.int64) for x in (uk, us, ue))
+
+
+def _merge_rows(case, rng):
+    """(key, start, end) of one hard case for the merge, in the order a
+    caller might hand them over."""
+    if case == "unsorted":
+        n = 4000
+        k = rng.integers(0, 300, size=n)
+        s = rng.integers(0, 20_000, size=n)
+        e = s + rng.integers(0, 200, size=n)
+    elif case == "ties_and_duplicates":
+        base_k = rng.integers(0, 40, size=300)
+        base_s = rng.integers(0, 5000, size=300)
+        pick = rng.integers(0, 300, size=3000)
+        k, s = base_k[pick], base_s[pick]
+        e = s + rng.integers(0, 120, size=3000)
+        e[::5] = s[::5]                      # empty spans among them
+        k = np.concatenate([k, k[:500]])     # exact duplicates
+        s = np.concatenate([s, s[:500]])
+        e = np.concatenate([e, e[:500]])
+    elif case == "touching_and_nested":
+        starts = np.cumsum(rng.integers(1, 50, size=1000))
+        ends = np.concatenate([starts[1:], [starts[-1] + 10]])
+        touch = (np.repeat(np.arange(10), 100), starts, ends)
+        outer_s = rng.integers(0, 10_000, size=400)
+        outer_e = outer_s + rng.integers(100, 1000, size=400)
+        inner_s = outer_s + rng.integers(0, 50, size=400)
+        inner_e = np.minimum(inner_s + rng.integers(0, 50, size=400), outer_e)
+        nest_k = rng.integers(10, 30, size=400)
+        k = np.concatenate([touch[0], nest_k, nest_k])
+        s = np.concatenate([touch[1], outer_s, inner_s])
+        e = np.concatenate([touch[2], outer_e, inner_e])
+    else:   # one row a key, over many keys
+        n = 5000
+        k = rng.permutation(n) * 3 + 1
+        s = rng.integers(0, 1 << 20, size=n)
+        e = s + rng.integers(0, 1000, size=n)
+    order = rng.permutation(len(k))
+    return k[order], s[order], e[order]
+
+
+@pytest.mark.parametrize("case", ["unsorted", "ties_and_duplicates",
+                                  "touching_and_nested", "one_row_a_key"])
+def test_segmented_merge_hard_cases_match_merge_and_union_jit(case):
+    """The port's merge and union against _merge_jit and _union_jit on
+    rows in no order, with (key, start) ties, duplicates, touching and
+    nested spans, and one row a key."""
+    rng = np.random.default_rng(len(case))
+    nU = 7
+    k, s, e = _merge_rows(case, rng)
+    want = _jax_merge(k, s, e)
+    got = si.segmented_merge(*(torch.from_numpy(x) for x in (k, s, e)))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w)
+    assert len(want[0]) < len(k) or case == "one_row_a_key"
+    union = si.segmented_merge(got[0] % nU, got[1], got[2])
+    for g, w in zip(union, _jax_union(want, nU)):
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("bad", ["key_2^31", "negative_key", "start_2^32",
+                                 "end_before_start"])
+def test_segmented_merge_rejects_rows_out_of_range(bad):
+    k = torch.tensor([0, 5, 9], dtype=torch.int64)
+    s = torch.tensor([10, 20, 30], dtype=torch.int64)
+    e = torch.tensor([15, 25, 35], dtype=torch.int64)
+    if bad == "key_2^31":
+        k[1] = 1 << 31
+    elif bad == "negative_key":
+        k[0] = -1
+    elif bad == "start_2^32":
+        s[2], e[2] = 1 << 32, 1 << 32
+    else:
+        e[1] = 19
+    with pytest.raises(ValueError, match="segmented_merge"):
+        si.segmented_merge(k, s, e)
+
+
+@pytest.mark.parametrize("n,kmax,smax,tile,want_shift,want_word32", [
+    (3_209_031, 174, 18_845, si.MERGE_TILE, 0, True),        # the union
+    (3_670_370, 18_730 * 175 - 1, 18_845, si.MERGE_TILE, 7, False),
+    (1, (1 << 31) - 1, (1 << 32) - 1, si.MERGE_TILE, 17, False),
+    (1_000_000, 0, 5000, 64, 0, True),                       # one key
+    (10, (1 << 31) - 1, 3, 64, 31, False),
+], ids=["union", "pair", "ranges_full", "one_key", "keys_spread"])
+def test_merge_plan_buckets_and_words(n, kmax, smax, tile, want_shift,
+                                      want_word32):
+    """The bucket plan of the card route: whole keys a bucket, a word
+    sk << ib | row within 64 bits (32 where it fits), and a bucket count
+    near n / 128 and never above 2^14 + 1 where the word caps the
+    shift."""
+    plan = si._merge_plan(n, 0, kmax, smax, tile)
+    assert plan["shift"] == want_shift
+    assert plan["word32"] == want_word32
+    assert plan["shift"] + plan["sb"] + plan["ib"] <= (32 if want_word32
+                                                       else 64)
+    assert plan["n_b"] == (kmax >> plan["shift"]) + 1
+    assert plan["n_b"] <= max(n // 128, (1 << 14) + 1)
+    assert plan["tile"] == (tile if want_word32 else tile // 2)
+
+
+def test_merge_tiers_count_every_bucket():
+    rng = np.random.default_rng(8)
+    k = torch.from_numpy(np.concatenate([rng.integers(0, 2000, size=6000),
+                                         np.full(400, 2001)]))
+    s = torch.from_numpy(rng.integers(0, 1000, size=k.numel()))
+    t = si.merge_tiers(k, s, s + 1, tile=300)
+    assert t["single"] + t["warp"] + t["block"] + t["device"] == t["n_b"]
+    assert t["largest"] >= 400 and t["device"] >= 1
+    assert si.merge_tiers(k[:0], s[:0], s[:0]) == {}
+
+
 def test_segmented_merge_group_longer_than_out_width():
     """The inputs of catch_tpu's regression test: one long interval and
     many short gapped ones in one group merge into one run."""
