@@ -51,12 +51,12 @@ _SIGNATURES = {
     "ct_max_pair": [_P, _P, _P, _I64, _P, _P],
     "ct_dd_run": [_P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _I32, _P],
     "ct_unique_flags": [_P, _I64, _P, _P],
-    "ct_verify_count": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
-                        _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
-                        _I64, _P, _P],
-    "ct_verify_emit": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
-                       _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
-                       _I64, _P, _P, _P, _P, _P],
+    "ct_vw_mask": [_P, _I64, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
+                   _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I64, _P,
+                   _P, _P],
+    "ct_vw_emit": [_P, _I64, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
+                   _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I64, _P,
+                   _P, _P, _P, _P, _P],
     "ct_verify_spans_count": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
                               _I32, _I32, _I32, _I32, _P, _P],
     "ct_verify_spans_emit": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,

@@ -420,8 +420,9 @@ def verify_windows(mega, codes, lens, pc, ac, seq_starts, seq_ends,
     to the chromosome; per candidate in order, windows left to right.
 
     Replaces catch_tpu/ops/scan_instance.py _stage_c_jit (:382-530);
-    the kernel is csrc/verify_windows.cu, bound by the 2 x L bytes each
-    candidate reads.
+    the kernels are csrc/verify_windows.cu: one walk of each candidate's
+    band builds its mismatch mask, four codes an instruction, and counts
+    its spans; the emit reads the masks back.
     """
     _require(mega, torch.uint8, "mega")
     _require(codes, torch.uint8, "codes")
@@ -434,36 +435,57 @@ def verify_windows(mega, codes, lens, pc, ac, seq_starts, seq_ends,
         raise ValueError(f"mismatches K={K} is outside [0, {_KMAX}]")
     if pc.numel() and seq_ends.numel() == 0:
         raise ValueError("candidate pairs given without any sequence")
+    if mega.numel() >= _PAIR_KEY_LIMIT:
+        raise ValueError(f"corpus of {mega.numel()} positions exceeds the "
+                         "31-bit position field")
     tensors = (mega, codes, lens, pc, ac, seq_starts, seq_ends, seq_lens,
                chrom_off, univ_of_seq)
     args = dict(K=K, k_seed=k_seed, lcf=lcf, seed_req=seed_req,
                 fast_ok=fast_ok, ext=ext, nU=nU)
     if _on_cpu(*tensors):
         return _verify_windows_plain(*tensors, **args)
+    return _verify_windows_cuda(*tensors, **args)
+
+
+def _verify_windows_cuda(mega, codes, lens, pc, ac, seq_starts, seq_ends,
+                         seq_lens, chrom_off, univ_of_seq, *, K, k_seed, lcf,
+                         seed_req, fast_ok, ext, nU, steps=None):
+    """verify_windows on the card; `steps` as in _lookup_expand_cuda."""
+    mark = steps.mark if steps is not None else _no_marks
     dev = pc.device
     n = pc.numel()
     empty = torch.empty(0, dtype=torch.int64, device=dev)
     if n == 0:
         return empty, empty.clone(), empty.clone()
+    mark("start")
     lib = _build.library()
     stream = _build.stream_of(pc)
     L = codes.shape[1]
-    common = [_build.ptr(t) for t in tensors[:5]] + [n] + [
-        _build.ptr(t) for t in tensors[5:]] + [
+    common = [_build.ptr(mega), mega.numel(), _build.ptr(codes),
+              codes.numel(), _build.ptr(lens), _build.ptr(pc),
+              _build.ptr(ac), n] + [
+        _build.ptr(t) for t in (seq_starts, seq_ends, seq_lens, chrom_off,
+                                univ_of_seq)] + [
         seq_starts.numel(), L, K, k_seed, lcf, seed_req, int(bool(fast_ok)),
         ext, nU]
+    # A band starts up to 15 bytes above a 16-aligned block, so its mask
+    # takes up to (L + 15) / 32 words, rounded up.
     counts = torch.empty(n, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_verify_count(*common, _build.ptr(counts), stream),
-                 "verify_count")
-    off = torch.cumsum(counts, 0)
+    masks = torch.empty((L + 46) // 32 * n, dtype=torch.int32, device=dev)
+    _build.check(lib.ct_vw_mask(*common, _build.ptr(counts),
+                                _build.ptr(masks), stream), "vw_mask")
+    mark("mask kernel")
+    off = counts.cumsum_(0)
     total = int(off[-1])
+    mark("cumsum+read")
     key = torch.empty(total, dtype=torch.int64, device=dev)
     start = torch.empty(total, dtype=torch.int64, device=dev)
     end = torch.empty(total, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_verify_emit(
-        *common, _build.ptr(off), _build.ptr(key), _build.ptr(start),
-        _build.ptr(end), stream), "verify_emit")
+    _build.check(lib.ct_vw_emit(
+        *common, _build.ptr(off), _build.ptr(masks), _build.ptr(key),
+        _build.ptr(start), _build.ptr(end), stream), "vw_emit")
     verify_windows.launches += 1
+    mark("emit kernel")
     return key, start, end
 
 

@@ -13,7 +13,9 @@ Phases (any failure exits non-zero and prints no result line):
      ebola175 design gives them: outputs
      must be exactly equal; the median, min and max times of both from
      CUDA events; the raw hit count beside the pairs, lookup_expand's
-     time split step by step, segmented_merge's for both calls of stage
+     time split step by step, verify_windows' (the mask kernel, the
+     cumsum and its read, the emit kernel) with stage C's peak device
+     memory above its inputs, segmented_merge's for both calls of stage
      D (the pair merge and the union) with the buckets each tier took,
      and stage D's peak device memory above its inputs;
   4. ebola5 (-pl 100 -m 0 -e 0) through catch_tpu_torch.cli.design on
@@ -467,6 +469,17 @@ def check_kernels(torch, device):
         torch, lambda st: si._lookup_expand_cuda(tbl_h, tbl_p, tbl_pos, q,
                                                  s, 0, steps=st)),
           flush=True)
+    print("verify_windows steps (ms, CUDA-event medians): " + step_split(
+        torch, lambda st: si._verify_windows_cuda(*vt, steps=st, **vargs)),
+          flush=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k3(si.verify_windows)
+    torch.cuda.synchronize()
+    print("verify_windows: stage C's peak "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB "
+          "above its inputs", flush=True)
     mk, ms, me = si._segmented_merge_plain(key, us, ue)
     for what, rows in (("pair merge", (key, us, ue)),
                        ("union", (mk % nU, ms, me))):

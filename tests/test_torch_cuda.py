@@ -12,7 +12,10 @@ window fast path, islands, several chromosomes, sequences shorter than
 the probes, merge buckets of every tier (the block tier forced small),
 ties, touching and nested spans, the ends of the key and position
 ranges, the span scan without minimizers (w = 1) and in
-many expansion slabs, and empty inputs.  Every comparison is exact.
+many expansion slabs, and empty inputs; for verify_windows' mask
+kernels, probe lengths 75 to 250, every alignment mod 16, K from 0 to
+62, a corpus with no tail pad or not 16-byte aligned, and alphabets of
+more than four codes with 'N' and PAD.  Every comparison is exact.
 """
 
 import numpy as np
@@ -997,3 +1000,219 @@ def test_design_on_a_cuda_mesh_equals_one_place(cuda, monkeypatch, n):
                    for v in stats["launches_by_place"].values())
         assert si.lookup_expand.launches == n
         assert si.dedup_pairs.launches == 1
+
+
+# ----------------------------------------------------------------------
+# K3 verify_windows: the mask kernels against the twin
+# ----------------------------------------------------------------------
+
+def _k3_inputs(device, L, *, seed=0, n_codes=4, short=False, pad_codes=False,
+               n_runs=False, tail_pad=True, mega_shift=0, n_random=1500,
+               only_random=False, alternate=False):
+    """verify_windows' tensors for a synthetic corpus of probe length L.
+
+    Eight mutated copies of one base sequence, each cut at both ends (by
+    up to L codes) and separated by PAD gaps of 0 to L codes (0: two
+    sequences touch), make the corpus; pairs of sequences form a genome
+    of two chromosomes.  Probes are pieces of the sequences, mutated, a
+    quarter of them shorter than L.  The pairs are each probe at its
+    homologous alignment in every sequence, shifted by -2 to 3, and
+    n_random pairs at random alignments (most positions mismatches),
+    sorted by (probe, alignment).  Options: short (every third sequence
+    shorter than L), pad_codes (1% of the corpus codes PAD, as bytes the
+    probes lack read), n_runs (runs of the last code, an 'N', in the base,
+    so probes and corpus share them), tail_pad (False: mega ends at the
+    last pair's a + L), mega_shift (mega starts that many bytes into its
+    allocation), only_random, alternate (every other code of the probes
+    changed, so that windows are short and many).
+    """
+    rng = np.random.default_rng(seed)
+    base = rng.integers(1, n_codes + 1, size=4 * L + 300).astype(np.uint8)
+    if n_runs:
+        for s0 in rng.integers(0, len(base) - 12, size=8):
+            base[s0:s0 + 10] = n_codes
+    pieces = []
+    for i in range(8):
+        seq = base.copy()
+        m = rng.random(len(seq)) < 0.03
+        seq[m] = rng.integers(1, n_codes + 1, size=int(m.sum()))
+        if pad_codes:
+            seq[rng.random(len(seq)) < 0.01] = 0
+        lo = int(rng.integers(0, L))
+        hi = len(seq) - int(rng.integers(0, L))
+        if short and i % 3 == 2:
+            hi = lo + int(rng.integers(L // 4, L))
+        pieces.append((seq[lo:hi], lo))
+    gaps = [L + 5] + [int(rng.integers(0, L + 1)) for _ in pieces]
+    starts, pos = [], gaps[0]
+    for (piece, _), g in zip(pieces, gaps[1:]):
+        starts.append(pos)
+        pos += len(piece) + g
+    m_len = pos + (L if tail_pad else 0)
+    mega = np.zeros(m_len, dtype=np.uint8)
+    for (piece, _), s0 in zip(pieces, starts):
+        mega[s0:s0 + len(piece)] = piece
+
+    rows, lens, homolog = [], [], []
+    for _ in range(30):
+        i = int(rng.integers(0, 8))
+        piece, lo = pieces[i]
+        if len(piece) < L:
+            continue
+        o = int(rng.integers(0, len(piece) - L + 1))
+        row = piece[o:o + L].copy()
+        m = rng.random(L) < 0.02
+        row[m] = rng.integers(1, n_codes + 1, size=int(m.sum()))
+        if alternate:
+            row[::2] = row[::2] % n_codes + 1
+        ln = L if rng.random() < 0.75 else int(rng.integers(L // 2, L))
+        row[ln:] = 0
+        rows.append(row)
+        lens.append(ln)
+        homolog.append(lo + o)
+    pairs = set()
+    if not only_random:
+        for p, b in enumerate(homolog):
+            for (_, lo), s0 in zip(pieces, starts):
+                for d in (-2, 0, 1, 3):
+                    a = s0 + b - lo + d
+                    if 0 <= a <= m_len - L:
+                        pairs.add((p, a))
+    for p, a in zip(rng.integers(0, len(rows), size=n_random),
+                    rng.integers(0, m_len - L + 1, size=n_random)):
+        pairs.add((int(p), int(a)))
+    pc, ac = (np.asarray(x, dtype=np.int64) for x in zip(*sorted(pairs)))
+    if not tail_pad:
+        mega = mega[:int(ac.max()) + L]
+    buf = np.zeros(len(mega) + mega_shift, dtype=np.uint8)
+    buf[mega_shift:] = mega
+
+    seq_lens = np.array([len(x) for x, _ in pieces], dtype=np.int64)
+    univ = np.arange(8, dtype=np.int64) // 2
+    chrom_off = np.where(np.arange(8) % 2, np.roll(seq_lens, 1), 0)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    starts = np.asarray(starts, dtype=np.int64)
+    return (put(buf)[mega_shift:], put(np.stack(rows)),
+            put(np.asarray(lens, dtype=np.int64)), put(pc), put(ac),
+            put(starts), put(starts + seq_lens), put(seq_lens),
+            put(chrom_off), put(univ))
+
+
+def _k3_check(vt, **args):
+    """verify_windows on the card equals its twin, with one launch;
+    returns the spans."""
+    si.reset_launches()
+    got = si.verify_windows(*vt, **args)
+    torch.cuda.synchronize()
+    assert si.verify_windows.launches == 1
+    _assert_equal(got, si._verify_windows_plain(*vt, **args))
+    return got
+
+
+def _k3_args(L, K, **kw):
+    args = dict(K=K, k_seed=20, lcf=min(60, L), seed_req=20, fast_ok=False,
+                ext=30, nU=4)
+    args.update(kw)
+    return args
+
+
+def _mismatches(vt):
+    """The mismatch count in each pair's band (plain PyTorch)."""
+    mega, codes, lens, pc, ac, seq_starts, seq_ends = vt[:7]
+    L = codes.shape[1]
+    sid = torch.clamp(torch.searchsorted(seq_ends, ac, side="right"), 0,
+                      seq_ends.numel() - 1)
+    lo = torch.maximum(seq_starts[sid], ac) - ac
+    hi = torch.minimum(seq_ends[sid], ac + lens[pc]) - ac
+    j = torch.arange(L, device=ac.device)
+    vals = mega[ac[:, None] + j]
+    band = (j >= lo[:, None]) & (j < hi[:, None])
+    return (band & ((vals != codes[pc]) | (vals == 0))).sum(1)
+
+
+@pytest.mark.parametrize("K", [0, 1, 2, 5, 62])
+@pytest.mark.parametrize("L", [75, 100, 150, 250])
+def test_verify_windows_probe_lengths_and_k(cuda, L, K):
+    """Probe lengths 75 to 250 (rows of codes not 16-byte aligned at 75
+    and 100) and K from 0 to 62 (registers up to 7, the shared-memory
+    ring above); alignments at every residue mod 16; bands cut at a
+    sequence's start and end; random pairs with more than 64
+    mismatches."""
+    vt = _k3_inputs(cuda, L, seed=L + K)
+    ac, lens, pc = vt[4], vt[2], vt[3]
+    assert len(set((ac % 16).tolist())) == 16
+    sid = torch.clamp(torch.searchsorted(vt[6], ac, side="right"), 0, 7)
+    assert bool((vt[5][sid] > ac).any())                 # cut at the start
+    assert bool((vt[6][sid] < ac + lens[pc]).any())      # cut at the end
+    if L >= 100:
+        assert int(_mismatches(vt).max()) > 64
+    spans = _k3_check(vt, **_k3_args(L, K))
+    assert spans[0].numel() > 0
+
+
+@pytest.mark.parametrize("case", [
+    "no_tail_pad", "no_tail_pad_shifted", "no_window", "most_windows",
+    "most_windows_k2", "fast_path", "seed_req_above_k_seed",
+    "short_seqs_k0_fast", "short_seqs_windows", "alphabet_n_pad",
+    "alphabet_n_pad_k62", "clamp_both_ends"])
+def test_verify_windows_cases(cuda, case):
+    """The band, window and alphabet cases of the mask kernels."""
+    L, K, kw, args = 100, 2, {}, {}
+    if case.startswith("no_tail_pad"):
+        # mega ends at the last pair's a + L; shifted: it starts 5 bytes
+        # into its allocation, so no load of it is 16-aligned at 0
+        kw = dict(tail_pad=False,
+                  mega_shift=5 if case.endswith("shifted") else 0)
+        L = 75
+    elif case == "no_window":
+        kw = dict(only_random=True)
+        K = 0
+    elif case.startswith("most_windows"):
+        kw = dict(alternate=True)
+        K = 2 if case.endswith("k2") else 0
+        args = dict(lcf=1, seed_req=0)
+    elif case == "fast_path":
+        args = dict(lcf=L, fast_ok=True)
+    elif case == "seed_req_above_k_seed":
+        args = dict(seed_req=35)
+    elif case == "short_seqs_k0_fast":
+        kw = dict(short=True)
+        K, args = 0, dict(lcf=L, fast_ok=True)
+    elif case == "short_seqs_windows":
+        kw = dict(short=True)
+    elif case.startswith("alphabet_n_pad"):
+        kw = dict(n_codes=12, pad_codes=True, n_runs=True)
+        K = 62 if case.endswith("k62") else 3
+        L = 150
+    elif case == "clamp_both_ends":
+        args = dict(ext=500)
+    vt = _k3_inputs(cuda, L, seed=len(case), **kw)
+    if kw.get("tail_pad") is False:
+        assert vt[0].numel() == int(vt[4].max()) + L
+    spans = _k3_check(vt, **_k3_args(L, K, **args))
+    n_spans = spans[0].numel()
+    if case == "no_window":
+        assert n_spans == 0
+    else:
+        assert n_spans > 0
+    if case.startswith("most_windows"):
+        assert n_spans > 10 * vt[3].numel()
+    if case == "clamp_both_ends":
+        seq_lens, chrom_off = vt[7], vt[8]
+        assert bool(torch.isin(spans[1], chrom_off).any())
+        assert bool(torch.isin(spans[2], chrom_off + seq_lens).any())
+
+
+def test_verify_windows_empty_and_limits(cuda):
+    """No pairs gives empty spans with no launch; K above 62 raises."""
+    vt = _k3_inputs(cuda, 100)
+    e = torch.empty(0, dtype=torch.int64, device=cuda)
+    si.reset_launches()
+    got = si.verify_windows(*vt[:3], e, e, *vt[5:], **_k3_args(100, 2))
+    assert all(x.numel() == 0 for x in got) and len(got) == 3
+    assert si.verify_windows.launches == 0
+    with pytest.raises(ValueError, match="outside"):
+        si.verify_windows(*vt, **_k3_args(100, 63))

@@ -25,19 +25,19 @@ CPU = torch.device("cpu")
 I32MAX = np.iinfo(np.int32).max
 
 
-def _mutate(rng, seq, rate):
+def _mutate(rng, seq, rate, alphabet=BASES):
     seq = seq.copy()
     m = rng.random(len(seq)) < rate
-    seq[m] = rng.choice(BASES, size=int(m.sum()))
+    seq[m] = rng.choice(alphabet, size=int(m.sum()))
     return seq
 
 
-def _genomes(rng, n_genomes, n_len, mut=0.03, n_chrs=1):
+def _genomes(rng, n_genomes, n_len, mut=0.03, n_chrs=1, alphabet=BASES):
     """Genomes as lists of chromosome strings, mutated from one base."""
-    base = rng.choice(BASES, size=n_len)
+    base = rng.choice(alphabet, size=n_len)
     out = []
     for _ in range(n_genomes):
-        seq = _mutate(rng, base, mut)
+        seq = _mutate(rng, base, mut, alphabet)
         bounds = np.linspace(0, n_len, n_chrs + 1).astype(int)
         out.append(["".join(seq[a:b])
                     for a, b in zip(bounds[:-1], bounds[1:])])
@@ -56,15 +56,35 @@ def _short_chr_genomes(rng):
     return out
 
 
+def _contrived_genomes(rng):
+    """Two-chromosome genomes over a contrived alphabet of nine letters
+    (runs of 'N' shared by every genome), with a tenth letter, 'Z', only
+    in the second chromosomes: the probes, tiled from the first, lack
+    it, so it reads as PAD in the corpus."""
+    letters = np.array(list("ABCDEFGHN"))
+    base = rng.choice(letters[:-1], size=1000)
+    for s0 in rng.integers(0, 990, size=6):
+        base[s0:s0 + 8] = "N"
+    out = []
+    for _ in range(4):
+        seq = _mutate(rng, base, 0.03, letters)
+        tail = seq[500:].copy()
+        tail[rng.random(len(tail)) < 0.01] = "Z"
+        out.append(["".join(seq[:500]), "".join(tail)])
+    return out
+
+
 class Scan:
     """The port's scan inputs for a corpus, probes tiled from the
-    first chromosome of every genome (80 bp every 40)."""
+    first chromosome of every genome (probe_length bp every half of
+    it)."""
 
-    def __init__(self, genomes, model_kw, k_seed=None):
+    def __init__(self, genomes, model_kw, k_seed=None, probe_length=80):
         seqs = [s for g in genomes for s in g]
         probes = DuplicateFilter()._filter(
             make_candidate_probes_from_sequences(
-                [g[0] for g in genomes], probe_length=80, probe_stride=40))
+                [g[0] for g in genomes], probe_length=probe_length,
+                probe_stride=probe_length // 2))
         self.searcher = ProbeSearcher(probes, CoverModel(**model_kw))
         if k_seed is not None:
             self.searcher.k_seed = k_seed
@@ -109,10 +129,13 @@ class Scan:
         return si.lookup_expand(*tbl, q, self.s)
 
 
-def _corpus_scan(seed=17, model_kw=None, **kw):
+def _corpus_scan(seed=17, model_kw=None, probe_length=80, contrived=False,
+                 **kw):
     rng = np.random.default_rng(seed)
-    return Scan(_genomes(rng, 4, 1000, **kw),
-                model_kw or dict(mismatches=2, lcf_thres=60))
+    genomes = (_contrived_genomes(rng) if contrived
+               else _genomes(rng, 4, 1000, **kw))
+    return Scan(genomes, model_kw or dict(mismatches=2, lcf_thres=60),
+                probe_length=probe_length)
 
 
 # ----------------------------------------------------------------------
@@ -287,9 +310,14 @@ def _stage_c_parity(sc, model_kw, ext):
         st["seq_ends"], st["seq_lens"], st["chrom_off"], st["univ_of_seq"],
         **args)
 
-    # The JAX program, at the shapes its own pipeline would give it.
+    # The JAX program, at the shapes its own pipeline would give it.  It
+    # gathers whole words of L + 4 codes, so it takes L a multiple of 4:
+    # other probe lengths go in padded by PAD columns, which no band
+    # reaches (only the fast path reads L itself).
     L, P = sc.L, sc.P
-    Lw = L + 4
+    Lj = L + -L % 4
+    assert Lj == L or not args["fast_ok"]
+    Lw = Lj + 4
     codes_shift = np.zeros((4 * P, Lw), dtype=np.uint8)
     for r in range(4):
         codes_shift[r * P:(r + 1) * P, r:r + L] = sc.codes
@@ -309,7 +337,7 @@ def _stage_c_parity(sc, model_kw, ext):
         jnp.asarray(acj), jnp.int32(0), jnp.int32(n), i32("seq_starts"),
         i32("seq_ends"), i32("seq_lens"), i32("chrom_off"),
         i32("univ_of_seq"), jnp.int32(args["k_seed"]),
-        jnp.int32(args["lcf"]), jnp.int32(sc.nU), L=L, K=args["K"], C=C,
+        jnp.int32(args["lcf"]), jnp.int32(sc.nU), L=Lj, K=args["K"], C=C,
         cap=cap, seed_req=args["seed_req"], fast_ok=args["fast_ok"],
         ext=ext, tsw=1 << 30)
     nq = int(nq)
@@ -322,18 +350,34 @@ def _stage_c_parity(sc, model_kw, ext):
     return args
 
 
-@pytest.mark.parametrize("model_kw,ext,n_chrs", [
-    (dict(mismatches=2, lcf_thres=60), 30, 1),
-    (dict(mismatches=0, lcf_thres=60), 0, 1),
-    (dict(mismatches=2, lcf_thres=80), 0, 1),     # fast path
-    (dict(mismatches=1, lcf_thres=60, island_of_exact_match=25), 10, 1),
-    (dict(mismatches=2, lcf_thres=60), 20, 3),    # multi-chromosome
-], ids=["m2_l60_e30", "m0", "fast_m2_l80", "island25", "multichrom"])
-def test_verify_windows_matches_stage_c_jit(model_kw, ext, n_chrs):
-    sc = _corpus_scan(seed=23, model_kw=model_kw, n_chrs=n_chrs)
+@pytest.mark.parametrize("model_kw,ext,n_chrs,L,contrived", [
+    (dict(mismatches=2, lcf_thres=60), 30, 1, 80, False),
+    (dict(mismatches=0, lcf_thres=60), 0, 1, 80, False),
+    (dict(mismatches=2, lcf_thres=80), 0, 1, 80, False),     # fast path
+    (dict(mismatches=1, lcf_thres=60, island_of_exact_match=25), 10, 1, 80,
+     False),
+    (dict(mismatches=2, lcf_thres=60), 20, 3, 80, False),    # multi-chrom
+    (dict(mismatches=2, lcf_thres=60), 30, 1, 75, False),
+    (dict(mismatches=2, lcf_thres=100), 30, 2, 150, False),
+    (dict(mismatches=5, lcf_thres=60), 30, 1, 80, False),
+    (dict(mismatches=3, lcf_thres=50), 40, 2, 80, True),
+], ids=["m2_l60_e30", "m0", "fast_m2_l80", "island25", "multichrom", "L75",
+        "L150", "m5", "contrived_alphabet"])
+def test_verify_windows_matches_stage_c_jit(model_kw, ext, n_chrs, L,
+                                            contrived):
+    sc = _corpus_scan(seed=23, model_kw=model_kw, probe_length=L,
+                      contrived=contrived, n_chrs=n_chrs)
+    assert sc.L == L
     args = _stage_c_parity(sc, model_kw, ext)
     if model_kw["lcf_thres"] == 80:
         assert args["fast_ok"]
+    if contrived:
+        # A-H and N are codes; Z, which no probe holds, reads as PAD
+        assert sc.searcher.alphabet.size == 9
+        st = sc.st
+        inside = torch.cat([st["mega"][a:b] for a, b in zip(
+            st["seq_starts"].tolist(), st["seq_ends"].tolist())])
+        assert bool((inside == 0).any())
 
 
 def test_verify_windows_k0_sequences_shorter_than_probes():
