@@ -71,8 +71,8 @@ _SIGNATURES = {
     "ct_minhash_caps": [_P, _I64, _P, _I64, _I32, _I32, _P, _P],
     "ct_minhash_assign": [_P, _I64, _P, _I64, _I32, _I32, _P, _P, _P],
     "ct_minhash_sig": [_P, _I64, _I32, _P, _I32, _P, _P],
-    "ct_pack_rows": [_P, _P, _P, _I64, _I32, _P, _P, _P],
-    "ct_pack_escapes": [_P, _P, _P, _P, _I64, _P, _P, _P, _P],
+    "ct_pack_merged": [_P, _P, _P, _I64, _I32, _I32, _P, _P, _P],
+    "ct_pack_escapes": [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P],
     "ct_assemble_rows": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "ct_assemble_pairs": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "ct_assemble_maxima": [_P, _P, _I64, _P, _P],

@@ -7,9 +7,11 @@ greedy solver on the host, in rank tiers.  With CATCH_TPU_SOLVE=device in the en
 as in catch_tpu, the instance stays on the device instead: stage E
 (scan_instance.ensure_assembled) and the greedy steps
 (set_cover.solve_boundary_instance) run there, and only the picks come
-back; a failure raises.  Identification ranks and avoided-genome ranks
-come from the tolerant model's unmerged span scan (ops/scan_sparse) on
-the same device, merged there per (probe, strand).  There is no
+back; a failure raises.  A group whose position axis does not fit the
+device solver's int32 coordinates takes the host route, as in
+catch_tpu.  Identification ranks and avoided-genome ranks come from the
+tolerant model's unmerged span scan (ops/scan_sparse) on the same
+device, merged there per (probe, strand).  There is no
 size-based route to a host scan and no fallback: a failing scan raises.
 
 With `mesh` (a parallel.mesh.Mesh led by `device`), every searcher the
@@ -265,6 +267,13 @@ class SetCoverFilter(BaseFilter):
             len(target_genomes), self.cover_extension, universe_p, pid_of,
             self.device)
         on_device = os.environ.get("CATCH_TPU_SOLVE") == "device"
+        if on_device and int(dev["offsets"][-1]) >= \
+                set_cover._DEVICE_AXIS_LIMIT:
+            # The device solver's coordinates are int32: catch_tpu's host
+            # route, a size seen before any launch.
+            logger.warning("Global position axis exceeds int32; falling "
+                           "back to the host instance build")
+            on_device = False
         if on_device:
             # Stage E and the greedy steps on the device; only the picks
             # come back.

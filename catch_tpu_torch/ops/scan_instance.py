@@ -23,10 +23,11 @@ The merged rows stay on the device; then one of two routes:
 
   P. Readback (the host solver's route, instance_to_host): K9
      pack_merged packs each merged row into 4 + b_pos bytes (key delta,
-     start, length) with an escape list for the rows whose delta or
-     length overflows 16 bits; the packed rows replace the merged ones on
-     the device, are read back, decoded on the host (unpack_merged) and
-     built into the exact host SetCoverInstance.
+     start, length), a tile of rows at a time in shared memory, with an
+     escape list for the rows whose delta or length overflows 16 bits
+     (written only where a tile has one); the packed rows replace the
+     merged ones on the device, are read back, decoded on the host
+     (unpack_merged) and built into the exact host SetCoverInstance.
   E. Solver arrays (the device solver's route, ensure_assembled): K10
      assemble turns the merged rows into global int32 coordinates, pair
      and set bounds and univ_of_pair, with the per-set maxima, which the
@@ -47,12 +48,24 @@ unpacked fallback, the 16-slot window compaction and its overflow
 re-dispatch, the pre-shifted probe copies and the word-aligned gather,
 the bucketed bisection and its escalation, and the batched and
 hierarchical merges.  Every stage runs once over the whole
-corpus; 64-bit indices throughout replace the int32 limits, and the
-bounds that remain (the 31-bit probe and alignment fields) raise.
+corpus wherever the kernels' 31-bit keys and positions hold it.
+
+Blocks.  Where they do not (P * nU >= 2^31, or a corpus of 2^31
+positions or more, where catch_tpu returns None and scans the group on
+the host), the scan runs in blocks: probe blocks of contiguous solver
+rows, each with keys p_local * nU + u below _BLOCK_PAIR_KEYS, and corpus
+blocks of whole sequences, each a window of the whole corpus layout
+shorter than _BLOCK_POSITIONS whose base is a multiple of the stride,
+so every corpus sample falls in exactly one block and every pair is
+found in one.  Stages A to C run for each (probe block, corpus block);
+stage D joins a probe block's spans over the corpus blocks (they are
+universe-local) and merges them; the merged keys are then lifted to
+int64 (p0 + p_local) * nU + u, and the blocks' unions get one union
+more.  Only a single sequence too long for a corpus block raises.
 
 With a mesh of more than one place on the searcher (ProbeSearcher(...,
 mesh=)), stages A, B and C are split over the places by contiguous
-ranges (_run_pipeline) where catch_tpu round-robins its slabs, hit
+ranges (_scan_corpus_block) where catch_tpu round-robins its slabs, hit
 subranges and candidate chunks (catch_tpu/ops/scan_instance.py
 :887-915, :980-1001, :1050-1057); the lead deduplicates the places'
 pairs once more (dedup_pairs: a probe-bucketed dedup), and the
@@ -85,6 +98,12 @@ HMAX = 0xFFFFFFFF
 _MASK32 = 0xFFFFFFFF
 _KMAX = 62                # largest K the verify kernel's ring holds
 _PAIR_KEY_LIMIT = 1 << 31  # pair keys and positions ride 32-bit fields
+# The scan's blocks (scan_to_boundary_instance): a probe block's keys
+# p_local * nU + u stay below _BLOCK_PAIR_KEYS, and a corpus block's
+# length, tail pad included, below _BLOCK_POSITIONS.  Read only by the
+# split; the kernels check _PAIR_KEY_LIMIT.
+_BLOCK_PAIR_KEYS = 1 << 31
+_BLOCK_POSITIONS = 1 << 31
 
 
 def _on_cpu(*tensors):
@@ -785,6 +804,13 @@ def pack_width(max_pos):
     return 2 if max_pos <= 0xFFFF else (3 if max_pos <= 0xFFFFFF else 4)
 
 
+# Rows a block of pack_merged's row kernel packs (a multiple of 16 up to
+# _PACK_MAX_TILE, PM_MAX_TILE in csrc/pack_merged.cu): ebola175's
+# 3,209,031 merged rows make 1,567 tiles.
+PACK_TILE = 2048
+_PACK_MAX_TILE = 2048
+
+
 @_build.on_own_device
 def pack_merged(key, start, end, b_pos):
     """The merged rows packed for readback.
@@ -799,8 +825,10 @@ def pack_merged(key, start, end, b_pos):
     int64): the escaped rows ascending, with their absolute key and end.
 
     Replaces catch_tpu/ops/scan_instance.py _pack_merged_jit (:611-658);
-    the kernels are csrc/pack_merged.cu (bandwidth bound), the escape
-    slots come from torch.cumsum.
+    the kernels are csrc/pack_merged.cu (bandwidth bound): tiles of
+    PACK_TILE rows assembled in shared memory and written as 16-byte
+    stores, one escape count a tile, and a second kernel only where a
+    tile has escapes.
     """
     for t, name in ((key, "key"), (start, "start"), (end, "end")):
         _require(t, torch.int64, name)
@@ -808,30 +836,44 @@ def pack_merged(key, start, end, b_pos):
         raise ValueError(f"b_pos={b_pos} is not 2, 3 or 4")
     if _on_cpu(key, start, end):
         return _pack_merged_plain(key, start, end, b_pos)
+    return _pack_merged_cuda(key, start, end, b_pos, PACK_TILE)
+
+
+pack_merged.launches = 0
+
+
+def _pack_merged_cuda(key, start, end, b_pos, tile):
+    """pack_merged on the card, with tiles of `tile` rows (a multiple of
+    16 up to _PACK_MAX_TILE): two launches (the rows, and the scan of
+    the tiles' escape counts), one host read of the escape total, and a
+    third launch only when it is above 0."""
+    if not (16 <= tile <= _PACK_MAX_TILE and tile % 16 == 0):
+        raise ValueError(f"tile {tile} is not a multiple of 16 in "
+                         f"[16, {_PACK_MAX_TILE}]")
     dev = key.device
     n = key.numel()
     packed = torch.empty(n * (4 + b_pos), dtype=torch.uint8, device=dev)
     if n == 0:
         e = torch.empty(0, dtype=torch.int64, device=dev)
         return packed, e, e.clone(), e.clone()
+    if packed.data_ptr() % 16:
+        raise ValueError("pack_merged needs a 16-byte aligned output")
     lib = _build.library()
     stream = _build.stream_of(key)
-    flags = torch.empty(n, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_pack_rows(
-        _build.ptr(key), _build.ptr(start), _build.ptr(end), n, b_pos,
-        _build.ptr(packed), _build.ptr(flags), stream), "pack_rows")
-    pos = torch.cumsum(flags, 0)
-    n_esc = int(pos[-1])
-    esc = [torch.empty(n_esc, dtype=torch.int64, device=dev)
-           for _ in range(3)]
-    _build.check(lib.ct_pack_escapes(
-        _build.ptr(key), _build.ptr(end), _build.ptr(flags), _build.ptr(pos),
-        n, *[_build.ptr(x) for x in esc], stream), "pack_escapes")
+    n_tiles = -(-n // tile)
+    counts = torch.empty(2 * n_tiles, dtype=torch.int64, device=dev)
+    _build.check(lib.ct_pack_merged(
+        _build.ptr(key), _build.ptr(start), _build.ptr(end), n, b_pos, tile,
+        _build.ptr(packed), _build.ptr(counts), stream), "pack_merged")
+    n_esc = int(counts[-1])
+    esc = torch.empty((3, n_esc), dtype=torch.int64, device=dev).unbind(0)
+    if n_esc:
+        _build.check(lib.ct_pack_escapes(
+            _build.ptr(key), _build.ptr(start), _build.ptr(end), n, tile,
+            _build.ptr(counts), *[_build.ptr(x) for x in esc], stream),
+            "pack_escapes")
     pack_merged.launches += 1
     return (packed, *esc)
-
-
-pack_merged.launches = 0
 
 
 def _pack_merged_plain(key, start, end, b_pos):
@@ -1025,6 +1067,15 @@ def scan_to_boundary_instance(searcher, sequences, seq_univ, chrom_off,
         universe sizes, coverage floors and offsets; perm maps solver set
         ids (probe rows sorted by candidate id) to searcher probe
         indices.  instance_to_host or ensure_assembled takes it on.
+
+    The kernels' keys and positions are 31-bit, so the scan runs in
+    blocks (module docstring): probe blocks of at most
+    (_BLOCK_PAIR_KEYS - 1) // n_universes rows and corpus blocks of whole
+    sequences, each shorter than _BLOCK_POSITIONS with its pads.  One
+    block of each kind is the whole scan wherever it fits.  Raises
+    ValueError where n_universes alone reaches _BLOCK_PAIR_KEYS or one
+    sequence does not fit a corpus block.  searcher.stats["blocks"]
+    holds (probe blocks, corpus blocks).
     """
     model = searcher.model
     if model.custom_fn is not None or searcher.K_static is None:
@@ -1032,32 +1083,40 @@ def scan_to_boundary_instance(searcher, sequences, seq_univ, chrom_off,
             "the scan runs the default cover model with a fixed mismatch "
             "count only")
     t0 = time.time()
-    P = searcher.probe_codes.shape[0]
     nU = int(n_universes)
-    if P * nU >= _PAIR_KEY_LIMIT:
-        raise ValueError(
-            f"{P} probes x {nU} genomes exceed the 31-bit pair key")
+    rows_per_block = (_BLOCK_PAIR_KEYS - 1) // nU
+    if rows_per_block < 1:
+        raise ValueError(f"{nU} genomes exceed the 31-bit pair key")
     K = int(searcher.K_static)
     k_seed = int(searcher.k_seed)
     island = model.island_of_exact_match
     seed_req = max(k_seed, island) if island > 0 else k_seed
     kj, s = join_params_stride(searcher)
     places = scan_places(searcher, device)
-    state, total, perm = prepare_corpus(searcher, sequences, seq_univ,
-                                        chrom_off, pid_of, device)
-    # The lead holds the corpus and probe rows; every other place gets
-    # a replica.
-    replicas = [state] + [{k: v.to(p, copy=True) for k, v in state.items()}
-                          for p in places[1:]]
+    probes, perm = prepare_probes(searcher, pid_of, device)
+    seq_lens = np.asarray([len(x) for x in sequences], dtype=np.int64)
+    starts = corpus_layout(searcher, seq_lens)
+    # Every place holds the probe rows and every corpus block (the lead
+    # the originals, the others replicas), kept across probe blocks.
+    corpus = []
+    for i0, i1, base in plan_corpus_blocks(searcher, seq_lens, starts,
+                                           seq_univ):
+        st, total = corpus_block(searcher, sequences, seq_univ, chrom_off,
+                                 seq_lens, starts, i0, i1, base, device)
+        corpus.append((_replicate(st, places), total))
+    probes = _replicate(probes, places)
     # Largest universe-local coordinate a span can carry (spans are
     # clamped to chrom_off + seq_len): sizes the packed start field.
     max_pos = int((np.asarray(chrom_off, dtype=np.int64)
                    + np.asarray(seq_len, dtype=np.int64)).max()) \
         if len(sequences) else 0
     _mark(searcher, device, "setup", t0)
-    dev = _run_pipeline(searcher, places, replicas, total, kj, s, K, k_seed,
-                        seed_req, nU, int(cover_extension), universe_p,
-                        pack_width(max_pos))
+    dev = _run_pipeline(searcher, places, probes, corpus, rows_per_block,
+                        kj, s, nU, universe_p, pack_width(max_pos),
+                        dict(K=K, k_seed=k_seed, lcf=int(searcher.lcf_static),
+                             seed_req=seed_req,
+                             fast_ok=bool(searcher.fast_ok),
+                             ext=int(cover_extension), nU=nU))
     return dev, perm
 
 
@@ -1080,12 +1139,19 @@ def split_range(n, parts):
 
 
 def join_on(device, parts):
-    """The places' result tuples joined on `device` in place order, one
-    tensor per column; one place's result is handed on as it is."""
+    """Result tuples (of places, or of blocks) joined on `device` in
+    order, one tensor per column; one result is handed on as it is."""
     if len(parts) == 1:
         return parts[0]
     return tuple(torch.cat([x.to(device) for x in col])
                  for col in zip(*parts))
+
+
+def _replicate(state, places):
+    """state (a dict of tensors on the lead) and a copy on every other
+    place, in place order."""
+    return [state] + [{k: v.to(p, copy=True) for k, v in state.items()}
+                      for p in places[1:]]
 
 
 def on_place(searcher, d, fn, *args, **kwargs):
@@ -1098,51 +1164,114 @@ def on_place(searcher, d, fn, *args, **kwargs):
     return out
 
 
+def prepare_probes(searcher, pid_of, device):
+    """The probe rows `codes` and lengths `lens` on `device` in solver
+    order (candidate-id order), and perm, which maps solver rows to
+    searcher probe indices."""
+    perm = np.argsort(pid_of, kind="stable")
+    return dict(
+        codes=_put(searcher.probe_codes[perm], device),
+        lens=_put(searcher.probe_lens[perm].astype(np.int64), device)), perm
+
+
+def _put(x, device):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def corpus_layout(searcher, seq_lens):
+    """Each sequence's start in the whole corpus laid out as
+    [L + kj pad][seq0][L pad][seq1][L pad]...[tail pad].  The leading
+    pad keeps every alignment >= 1; the pads between sequences keep
+    every window of a pair in one sequence."""
+    L = searcher.Lmax
+    kj, _ = join_params_stride(searcher)
+    ends = np.cumsum(np.asarray(seq_lens, dtype=np.int64) + L)
+    starts = L + kj + np.concatenate([[0], ends[:-1]]).astype(np.int64)
+    return starts[:len(seq_lens)]
+
+
+def _tail_pad(searcher):
+    """Pad after a corpus's last sequence and its L pad: the strided
+    hashing's last window and verification's L-wide reads."""
+    kj, s = join_params_stride(searcher)
+    return searcher.Lmax + s + kj
+
+
+def plan_corpus_blocks(searcher, seq_lens, starts, seq_univ):
+    """The corpus blocks: (i0, i1, base) for each, sequences i0..i1 - 1
+    in the window of the whole layout (corpus_layout) that starts at
+    base.
+
+    base is a multiple of the stride s at or below starts[i0] - (L +
+    kj), so each sequence keeps its position mod s (the same samples)
+    and its block keeps the leading pad; a block's length, tail pad
+    included, stays below _BLOCK_POSITIONS.  One block holds the whole
+    corpus wherever it fits.  Raises ValueError for a sequence that fits
+    no block."""
+    L = searcher.Lmax
+    kj, s = join_params_stride(searcher)
+    tail = _tail_pad(searcher)
+    n = len(seq_lens)
+    ends = np.asarray(starts, dtype=np.int64) + seq_lens + L + tail
+    blocks, i0 = [], 0
+    while True:
+        base = 0 if i0 == 0 else (int(starts[i0]) - L - kj) // s * s
+        i1 = i0 + int(np.searchsorted(ends[i0:], base + _BLOCK_POSITIONS))
+        if i1 == i0 < n:
+            raise ValueError(
+                f"sequence {i0} (genome {int(seq_univ[i0])}, "
+                f"{int(seq_lens[i0])} bp) does not fit a corpus block of "
+                f"{_BLOCK_POSITIONS} positions: the scan's positions are "
+                "31-bit")
+        blocks.append((i0, i1, base))
+        i0 = i1
+        if i0 >= n:
+            return blocks
+
+
+def corpus_block(searcher, sequences, seq_univ, chrom_off, seq_lens, starts,
+                 i0, i1, base, device):
+    """Sequences i0..i1 - 1 as one corpus block on `device`, the window
+    of the whole layout from `base` (plan_corpus_blocks).
+
+    Returns (state, total): state holds the codes `mega` and the
+    per-sequence int64 tables (starts and ends in the block, lengths,
+    chromosome offsets, universes); total is the block's length without
+    its tail pad."""
+    L = searcher.Lmax
+    kj, _ = join_params_stride(searcher)
+    local = np.asarray(starts[i0:i1], dtype=np.int64) - base
+    lens = np.asarray(seq_lens[i0:i1], dtype=np.int64)
+    total = int(local[-1] + lens[-1] + L) if i1 > i0 else L + kj
+    mega = np.zeros(total + _tail_pad(searcher), dtype=np.uint8)
+    for j, x in enumerate(sequences[i0:i1]):
+        mega[local[j]:local[j] + lens[j]] = searcher.alphabet.encode(
+            encode.encode_bytes(x))
+    state = dict(
+        mega=_put(mega, device), seq_starts=_put(local, device),
+        seq_ends=_put(local + lens, device), seq_lens=_put(lens, device),
+        chrom_off=_put(np.asarray(chrom_off, dtype=np.int64)[i0:i1], device),
+        univ_of_seq=_put(np.asarray(seq_univ, dtype=np.int64)[i0:i1],
+                         device))
+    return state, total
+
+
 def prepare_corpus(searcher, sequences, seq_univ, chrom_off, pid_of,
                    device):
-    """The scan's input tensors on `device`.
+    """The scan's input tensors on `device`, the whole corpus as one
+    block (the kernels' inputs on a corpus that fits one).
 
     Returns (state, total, perm): state holds the corpus codes `mega`,
     the probe rows `codes` and lengths `lens` in solver order, and the
     per-sequence int64 tables; total is the corpus length without its
     tail pad; perm maps solver rows to searcher probe indices.
     """
-    L = searcher.Lmax
-    kj, s = join_params_stride(searcher)
-    # Corpus: [L + kj pad][seq0][L pad][seq1]...[tail pad].  The leading
-    # pad keeps every alignment >= 1; the tail covers the strided
-    # hashing and verification's L-wide reads.
-    n_seqs = len(sequences)
+    probes, perm = prepare_probes(searcher, pid_of, device)
     seq_lens = np.asarray([len(x) for x in sequences], dtype=np.int64)
-    starts = np.empty(n_seqs, dtype=np.int64)
-    pos = L + kj
-    for i, ln in enumerate(seq_lens):
-        starts[i] = pos
-        pos += int(ln) + L
-    total = pos
-    mega_len = total + L + s + kj
-    if mega_len >= _PAIR_KEY_LIMIT:
-        raise ValueError(f"corpus of {total} positions exceeds the 31-bit "
-                         "position field")
-    mega = np.zeros(mega_len, dtype=np.uint8)
-    for i, x in enumerate(sequences):
-        mega[starts[i]:starts[i] + seq_lens[i]] = searcher.alphabet.encode(
-            encode.encode_bytes(x))
-
-    perm = np.argsort(pid_of, kind="stable")
-
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-    state = dict(
-        mega=put(mega),
-        codes=put(searcher.probe_codes[perm]),
-        lens=put(searcher.probe_lens[perm].astype(np.int64)),
-        seq_starts=put(starts), seq_ends=put(starts + seq_lens),
-        seq_lens=put(seq_lens),
-        chrom_off=put(np.asarray(chrom_off, dtype=np.int64)),
-        univ_of_seq=put(np.asarray(seq_univ, dtype=np.int64)))
-    return state, total, perm
+    starts = corpus_layout(searcher, seq_lens)
+    st, total = corpus_block(searcher, sequences, seq_univ, chrom_off,
+                             seq_lens, starts, 0, len(seq_lens), 0, device)
+    return dict(st, **probes), total, perm
 
 
 def _mark_places(places, phase, t0):
@@ -1168,28 +1297,80 @@ def _mark(searcher, device, key, t0, prefix="scan"):
     return now
 
 
-def _run_pipeline(searcher, places, replicas, total, kj, s, K, k_seed,
-                  seed_req, nU, ext, universe_p, b_pos):
-    """Stages T to D over `places` (one, or the places of a mesh), place
-    d reading replicas[d].  The table is built once on the lead and
-    replicated; each place hashes and looks up a contiguous range of
-    the samples (stages A, B); the pairs are joined on the lead,
-    deduplicated once more over all ranges (samples of two ranges can
-    find one pair) and cut into contiguous blocks; each place verifies
-    its block (stage C); the spans are joined on the lead in block
-    order, where the merges run.  The result does not depend on the
-    number of places."""
+def _run_pipeline(searcher, places, probes, corpus, rows_per_block, kj, s,
+                  nU, universe_p, b_pos, vargs):
+    """Stages T to D over `places` (one, or the places of a mesh), a
+    probe block of rows_per_block rows at a time; probes[d] and each
+    corpus block's states[d] are place d's.
+
+    For each probe block: its table is built on the lead and replicated
+    (stage T); each corpus block goes through stages A to C
+    (_scan_corpus_block) with block-local keys p_local * nU + u; the
+    spans of all corpus blocks are joined (they are universe-local) and
+    merged per key and per universe (stage D); the merged keys move up
+    by p0 * nU to the int64 keys of the whole scan, so the blocks'
+    merged rows, joined in block order, stay sorted by key.  Then one
+    union of the blocks' unions.  The result depends neither on the
+    blocks nor on the number of places."""
+    device = places[0]
+    P = probes[0]["codes"].shape[0]
+    bounds = (list(range(0, P, rows_per_block)) or [0]) + [P]
+    merged, unions = [], []
+    for p0, p1 in zip(bounds, bounds[1:]):
+        t0 = time.time()
+        rows = [{k: v[p0:p1] for k, v in pr.items()} for pr in probes]
+        table = build_table(rows[0]["codes"], kj)
+        tables = [table] + [tuple(x.to(p, copy=True) for x in table)
+                            for p in places[1:]]
+        _mark(searcher, device, "table_and_hash", t0)
+        spans = [_scan_corpus_block(searcher, places, rows, tables, states,
+                                    total, kj, s, vargs)
+                 for states, total in corpus]
+        del table, tables
+        key, us, ue = join_on(device, spans)
+        del spans
+        t0 = time.time()
+        mk, ms, me = segmented_merge(key, us, ue)
+        del key, us, ue
+        t0 = _mark(searcher, device, "merge", t0)
+        unions.append(segmented_merge(mk % nU, ms, me))
+        merged.append((mk + p0 * nU if p0 else mk, ms, me))
+        _mark(searcher, device, "assemble", t0)
+    t0 = time.time()
+    union = unions[0] if len(unions) == 1 else segmented_merge(
+        *join_on(device, unions))
+    uk, us_, ue_ = (x.cpu().numpy() for x in union)
+    u_size = np.zeros(nU, dtype=np.int64)
+    u_span = np.zeros(nU, dtype=np.int64)
+    np.add.at(u_size, uk, ue_ - us_)
+    np.maximum.at(u_span, uk, ue_)
+    offsets = np.zeros(nU + 1, dtype=np.int64)
+    np.cumsum(u_span, out=offsets[1:])
+    universe_p = np.asarray(universe_p, dtype=np.float64)
+    can_uncover = (u_size - universe_p * u_size).astype(np.int64)
+    mk, ms, me = join_on(device, merged)
+    searcher.stats["blocks"] = (len(bounds) - 1, len(corpus))
+    _mark(searcher, device, "assemble", t0)
+    return dict(b_pos=b_pos, merged=(mk, ms, me),
+                n_merged=int(mk.numel()), offsets=offsets, nU=nU,
+                u_size_host=u_size, can_uncover_host=can_uncover)
+
+
+def _scan_corpus_block(searcher, places, rows, tables, states, total, kj, s,
+                       vargs):
+    """Stages A to C of one probe block against one corpus block, place d
+    reading rows[d], tables[d] and states[d]: each place hashes and
+    looks up a contiguous range of the block's samples (stages A, B);
+    the pairs are joined on the lead, deduplicated once more over all
+    ranges (samples of two ranges can find one pair) and cut into
+    contiguous parts; each place verifies its part (stage C).  Returns
+    the spans (key, start, end) on the lead, in part order."""
     device, n = places[0], len(places)
     t0 = time.time()
-    # Stage T + A: probe table and strided corpus hashes.
-    table = build_table(replicas[0]["codes"], kj)
-    tables = [table] + [tuple(x.to(p, copy=True) for x in table)
-                        for p in places[1:]]
-    n_samples = -(-total // s)
-    ranges = split_range(n_samples, n)
+    ranges = split_range(-(-total // s), n)
     qs = [on_place(searcher, d, rolling_hash, st["mega"][g0 * s:], g1 - g0,
                    s, kj, total - kj - g0 * s)
-          for d, (st, g0, g1) in enumerate(zip(replicas, ranges, ranges[1:]))]
+          for d, (st, g0, g1) in enumerate(zip(states, ranges, ranges[1:]))]
     t0 = _mark(searcher, device, "table_and_hash", t0)
 
     # Stage B: deduplicated (probe, alignment) pairs, sorted by probe
@@ -1199,44 +1380,23 @@ def _run_pipeline(searcher, places, replicas, total, kj, s, K, k_seed,
     pc, ac = join_on(device, pairs)
     if n > 1:
         pc, ac = dedup_pairs(pc, ac)
-    del table, tables, qs, pairs
+    del qs, pairs
     searcher.stats["candidates"] += int(pc.numel())
     t0 = _mark(searcher, device, "join_expand", t0)
 
-    # Stage C: cover spans, a block of pairs per place.
-    blocks = split_range(pc.numel(), n)
+    # Stage C: cover spans, a part of the pairs per place.
+    parts = split_range(pc.numel(), n)
     spans = []
-    for d, (st, c0, c1) in enumerate(zip(replicas, blocks, blocks[1:])):
+    for d, (st, c0, c1) in enumerate(zip(states, parts, parts[1:])):
         spans.append(on_place(
-            searcher, d, verify_windows, st["mega"], st["codes"], st["lens"],
-            pc[c0:c1].to(places[d]), ac[c0:c1].to(places[d]),
-            st["seq_starts"], st["seq_ends"], st["seq_lens"],
-            st["chrom_off"], st["univ_of_seq"], K=K, k_seed=k_seed,
-            lcf=int(searcher.lcf_static), seed_req=seed_req,
-            fast_ok=bool(searcher.fast_ok), ext=ext, nU=nU))
-    key, us, ue = join_on(device, spans)
-    del pc, ac, spans
-    t0 = _mark(searcher, device, "verify", t0)
-
-    # Stage D: per-pair merge over all spans at once, then the
-    # per-universe union.
-    mk, ms, me = segmented_merge(key, us, ue)
-    del key, us, ue
-    t0 = _mark(searcher, device, "merge", t0)
-    uk, us_, ue_ = (x.cpu().numpy()
-                    for x in segmented_merge(mk % nU, ms, me))
-    u_size = np.zeros(nU, dtype=np.int64)
-    u_span = np.zeros(nU, dtype=np.int64)
-    np.add.at(u_size, uk, ue_ - us_)
-    np.maximum.at(u_span, uk, ue_)
-    offsets = np.zeros(nU + 1, dtype=np.int64)
-    np.cumsum(u_span, out=offsets[1:])
-    universe_p = np.asarray(universe_p, dtype=np.float64)
-    can_uncover = (u_size - universe_p * u_size).astype(np.int64)
-    _mark(searcher, device, "assemble", t0)
-    return dict(b_pos=b_pos, merged=(mk, ms, me),
-                n_merged=int(mk.numel()), offsets=offsets, nU=nU,
-                u_size_host=u_size, can_uncover_host=can_uncover)
+            searcher, d, verify_windows, st["mega"], rows[d]["codes"],
+            rows[d]["lens"], pc[c0:c1].to(places[d]),
+            ac[c0:c1].to(places[d]), st["seq_starts"], st["seq_ends"],
+            st["seq_lens"], st["chrom_off"], st["univ_of_seq"], **vargs))
+    del pc, ac
+    out = join_on(device, spans)
+    _mark(searcher, device, "verify", t0)
+    return out
 
 
 def ensure_assembled(dev, perm, pid_of, rank_idx_cand, n_rank_vals,
@@ -1250,8 +1410,8 @@ def ensure_assembled(dev, perm, pid_of, rank_idx_cand, n_rank_vals,
     candidate values of pid_of[perm], as catch_tpu builds them.  Also
     max_pairs_per_set and max_ivls_per_set (the true maxima over the
     sets), n_rank_vals and u_len.  Raises ValueError when the global
-    position axis does not fit int32 (catch_tpu returns None there and
-    takes its host route; the port has no such route).
+    position axis does not fit int32; SetCoverFilter checks the axis
+    first and takes the host route there, as catch_tpu does.
     """
     if "ivl_start" in dev:
         return dev

@@ -31,7 +31,9 @@ rank tier, ties to the lowest set id.
 Left out from catch_tpu: the power-of-two padding (dummy sets, pairs,
 universes and empty intervals), and the fallback from a failed device
 solve to the host; a device solve that fails, or that reaches its
-dispatch bound without stopping, raises.  Every kernel wrapper runs its
+dispatch bound without stopping, raises.  Kept: an instance whose
+position axis does not fit int32 is solved on the host, a size checked
+before any launch (_DEVICE_AXIS_LIMIT).  Every kernel wrapper runs its
 plain-PyTorch twin (same module, name suffixed _plain) for CPU tensors
 and its kernel for CUDA tensors, and counts its launches in an integer
 attribute `launches`; the wrappers are registered in
@@ -50,6 +52,11 @@ __all__ = ["SetCoverInstance", "solve_instance", "solve_boundary_instance",
            "assembled_instance", "build_instance_from_cover_arrays",
            "init_covered", "greedy_steps_v2", "greedy_steps_v1",
            "initial_state"]
+
+# The device solvers' position axis rides int32: an instance whose axis
+# reaches this many positions is solved on the host (solve_instance, and
+# SetCoverFilter under CATCH_TPU_SOLVE=device), as catch_tpu does.
+_DEVICE_AXIS_LIMIT = np.iinfo(np.int32).max
 
 # Greedy steps a device dispatch runs between two readbacks of its
 # picks (catch_tpu's _STEPS_PER_DISPATCH).  Steps after the stop change
@@ -887,7 +894,10 @@ def solve_instance(inst, force_device=False, device=None, mesh=None):
     unless the caller names the CPU) or, given a `mesh` of more than
     one place, the sharded solver on the mesh
     (parallel/set_cover.solve_instance_sharded), with the same picks; a
-    failure raises.  Without force_device the mesh is not used, as in
+    failure raises.  Without a mesh, an instance whose position axis
+    reaches _DEVICE_AXIS_LIMIT is solved on the host, as catch_tpu does
+    (catch_tpu/ops/set_cover.py:988); the sharded solver has no such
+    route and raises.  Without force_device the mesh is not used, as in
     catch_tpu.
     """
     if inst.n_sets == 0 or inst.u_len == 0 or len(inst.ivl_start) == 0:
@@ -897,7 +907,7 @@ def solve_instance(inst, force_device=False, device=None, mesh=None):
     if force_device and mesh is not None and mesh.size > 1:
         from catch_tpu_torch.parallel.set_cover import solve_instance_sharded
         return solve_instance_sharded(inst, mesh=mesh)
-    if force_device:
+    if force_device and inst.u_len < _DEVICE_AXIS_LIMIT:
         return _solve_device_steps(
             inst, resolve_device("cuda" if device is None else device))
     return _solve_host_lazy(inst)

@@ -109,6 +109,26 @@ Phases (any failure exits non-zero and prints no result line):
      rows and its step split printed beside); CUDA-event medians, min
      and max.
 
+ 21. ebola175 m2 as in phase 5 with the scan's block constants
+     (scan_instance._BLOCK_PAIR_KEYS, _BLOCK_POSITIONS) patched to 2^20:
+     4 probe blocks and at least 3 corpus blocks; on the host solver's
+     route, the device solver's, and the device solver's with the
+     position-axis limit (set_cover._DEVICE_AXIS_LIMIT) patched below the
+     axis, which takes the host route: each FASTA must equal
+     torch_ebola175_m2.fasta byte for byte, the candidates and picks
+     phase 5's; rolling_hash, lookup_expand and verify_windows must have
+     launched once per block pair (rolling_hash also once per probe
+     block, for its table), pack_merged only on the host routes and
+     assemble only on the device route;
+ 22. the splits at real size, scan only, at the unpatched limits:
+     ebola175's candidates against ebola175 and 8 random genomes of
+     272,000,000 bp (default_rng(11); past 2^31 positions, corpus
+     blocks), and against 115,000 pieces of 1,000 bp of ebola175 at
+     default_rng(12) offsets (P x nU past 2^31, probe blocks): the rows
+     of the first 175 universes, re-keyed, must equal a scan of those
+     universes alone; wall seconds, blocks, pairs and peak device
+     memory.
+
 Each phase prints its wall seconds as it ends.  The line before the
 last is the card's name and power limit; the one before it a JSON
 object with one entry per kernel entry point (times, launches on its
@@ -386,12 +406,14 @@ def bound(work):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_inputs(torch, device):
-    """The inputs each kernel gets in the ebola175 design."""
+def ebola175_scan():
+    """The ebola175 design's scan inputs (-pl 100 -m 2 -l 60): its
+    searcher over the candidates, each searcher probe's candidate id,
+    the sequences with their universes and chromosome offsets, and the
+    number of candidates."""
     from catch_tpu_torch.filters.candidates import (
         make_candidate_probes_from_sequences)
     from catch_tpu_torch.filters.duplicate import DuplicateFilter
-    from catch_tpu_torch.ops import scan_instance as si
     from catch_tpu_torch.ops.cover import CoverModel, ProbeSearcher
     from catch_tpu_torch.utils import seq_io
 
@@ -409,11 +431,20 @@ def kernel_inputs(torch, device):
             univ.append(j)
             off.append(pos)
             pos += len(x)
+    return searcher, pid, seqs, univ, off, len(probes)
+
+
+def kernel_inputs(torch, device):
+    """The inputs each kernel gets in the ebola175 design."""
+    from catch_tpu_torch.ops import scan_instance as si
+
+    searcher, pid, seqs, univ, off, n_probes = ebola175_scan()
+    nU = max(univ) + 1
     st, total, _ = si.prepare_corpus(searcher, seqs, univ, off, pid, device)
     kj, s = si.join_params_stride(searcher)
     K, k_seed = int(searcher.K_static), int(searcher.k_seed)
     return dict(searcher=searcher, st=st, total=total, kj=kj, s=s, K=K,
-                k_seed=k_seed, nU=len(genomes), n_probes=len(probes),
+                k_seed=k_seed, nU=nU, n_probes=n_probes,
                 corpus_bp=sum(len(x) for x in seqs))
 
 
@@ -1479,6 +1510,173 @@ def dedup_case(torch, device, n):
             packed_unique)
 
 
+@contextlib.contextmanager
+def patched(module, name, value):
+    """module.name set to value for the block."""
+    before = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, before)
+
+
+BLOCK_LIMIT = 1 << 20   # phase 21's _BLOCK_PAIR_KEYS and _BLOCK_POSITIONS
+
+
+def blocked_design(torch, si, profiling, in175, stats5):
+    """Phase 21: ebola175 m2 through the CLI with both block constants
+    patched to 2^20 (4 probe blocks, 4 corpus blocks), on the host
+    solver's route, the device solver's, and the device solver's with
+    the position-axis limit patched below the axis (so the host route
+    takes over).  Every FASTA must equal torch_ebola175_m2.fasta, the
+    candidates and picks phase 5's; rolling_hash (the table of each
+    probe block, then the samples of each block pair), lookup_expand and
+    verify_windows must have launched once per block pair, and
+    pack_merged only where the host solver ran."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    blocks = []
+    for route, axis, on_card in (
+            ("host solver", sct._DEVICE_AXIS_LIMIT, False),
+            ("device solver", sct._DEVICE_AXIS_LIMIT, True),
+            ("device solver, axis limit 1000", 1000, False)):
+        out = os.path.join(WORK, f"ebola175_m2_blocks_{len(blocks)}.fasta")
+        ctx = solve_on_device() if route.startswith("device") \
+            else contextlib.nullcontext()
+        with patched(si, "_BLOCK_PAIR_KEYS", BLOCK_LIMIT), \
+                patched(si, "_BLOCK_POSITIONS", BLOCK_LIMIT), \
+                patched(sct, "_DEVICE_AXIS_LIMIT", axis), ctx, recording(
+                    si, "scan_to_boundary_instance",
+                    lambda a, k, r: blocks.append(a[0].stats["blocks"])):
+            pb, wall, launches, peak = counted(
+                torch, si, profiling, lambda: design(
+                    [in175, "-o", out, "-pl", "100", "-m", "2", "-l", "60",
+                     "-e", "50", "--device", "cuda"]))
+        what = f"ebola175 m2 in blocks of 2^20, {route}"
+        if not same_bytes(out, os.path.join(GOLDEN,
+                                            "torch_ebola175_m2.fasta")):
+            fail(f"{what}: output differs from torch_ebola175_m2.fasta")
+        stats = pb.filters[-1].last_run_stats
+        got = (stats["candidates_evaluated"], stats["set_cover_picks"])
+        if got != stats5:
+            fail(f"{what}: (candidates, picks) {got} differ from phase 5's "
+                 f"{stats5}")
+        n_p, n_c = blocks[-1]
+        if n_p != 4 or n_c < 3:
+            fail(f"{what}: {n_p} probe blocks and {n_c} corpus blocks")
+        pairs = n_p * n_c
+        want = {"rolling_hash": n_p + pairs, "lookup_expand": pairs,
+                "verify_windows": pairs, "segmented_merge": 2 * n_p + 1,
+                "pack_merged": 0 if on_card else 1,
+                "assemble": 1 if on_card else 0}
+        for name, n in want.items():
+            if launches[name] != n:
+                fail(f"{what}: {launches[name]} launches of {name}, not {n}")
+        print(f"{what}: {len(pb.final_probes)} probes, equal to golden; "
+              f"{n_p} probe blocks x {n_c} corpus blocks; {got[0]} "
+              f"candidates and {got[1]} picks, as unsplit; wall {wall:.3f} "
+              f"s; peak allocated device memory {peak / 2**20:.1f} MiB",
+              flush=True)
+        print_phases(profiling, ("candidate", "filter", "set_cover", "scan"))
+        print(f"launches ({what}): {launches}", flush=True)
+
+
+BG_GENOMES, BG_BP = 8, 272_000_000   # phase 22 (i): 2,176,000,000 bp
+N_PIECES, PIECE_BP = 115_000, 1000   # phase 22 (ii)
+
+
+def blocked_scans(torch, si, profiling, device):
+    """Phase 22: the splits at real size, at the unpatched limits, scan
+    only (scan_to_boundary_instance): (i) ebola175's candidates against
+    ebola175 and 8 random background genomes of 272,000,000 bp
+    (default_rng(11)), past 2^31 positions, so in corpus blocks; (ii)
+    the same candidates against 115,000 pieces of 1,000 bp cut from
+    ebola175 at default_rng(12) offsets, each a genome, so P x nU passes
+    2^31 and the probes go in blocks.  In each, the merged rows of the
+    first 175 universes, re-keyed, must equal a scan of those universes
+    alone, with their sizes and offsets."""
+    import numpy as np
+
+    searcher, pid, seqs, univ, off, _ = ebola175_scan()
+    n_e = max(univ) + 1
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+    def scan(sequences, seq_univ, chrom_off, n_universes):
+        searcher.stats.clear()
+        searcher.stats["candidates"] = 0
+        lens = [len(x) for x in sequences]
+        profiling.reset_phases()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        dev, _ = si.scan_to_boundary_instance(
+            searcher, sequences, np.asarray(seq_univ), np.asarray(chrom_off),
+            np.asarray(lens), n_universes, 50, np.ones(n_universes), pid,
+            device)
+        torch.cuda.synchronize()
+        return dev, dict(wall=time.time() - t0, bp=sum(lens),
+                         blocks=searcher.stats["blocks"],
+                         pairs=searcher.stats["candidates"],
+                         peak=torch.cuda.max_memory_allocated())
+
+    def check(what, dev, info, ref, n_universes):
+        mk, ms, me = dev["merged"]
+        u = mk % n_universes
+        sel = u < n_e
+        got = ((mk[sel] // n_universes) * n_e + u[sel], ms[sel], me[sel])
+        for g, w in zip(got, ref["merged"]):
+            if not torch.equal(g, w):
+                fail(f"{what}: the rows of the first {n_e} universes differ "
+                     "from their scan alone")
+        if not (np.array_equal(dev["u_size_host"][:n_e], ref["u_size_host"])
+                and np.array_equal(dev["offsets"][:n_e + 1], ref["offsets"])):
+            fail(f"{what}: the first {n_e} universes' sizes or offsets differ")
+        print(f"{what}: {info['bp']} bp, {info['blocks'][0]} probe blocks x "
+              f"{info['blocks'][1]} corpus blocks, {info['pairs']} candidate "
+              f"pairs, {dev['n_merged']} merged rows; wall {info['wall']:.3f} "
+              f"s; peak allocated device memory {info['peak'] / 2**20:.1f} "
+              f"MiB; the first {n_e} universes' {int(sel.sum())} rows equal "
+              "their scan alone", flush=True)
+        print_phases(profiling, ("scan",))
+
+    # (i) corpus blocks
+    t0 = time.time()
+    rng = np.random.default_rng(11)
+    bg = [bases[rng.integers(0, 4, size=BG_BP, dtype=np.uint8)].tobytes()
+          .decode() for _ in range(BG_GENOMES)]
+    print(f"background: {BG_GENOMES} genomes of {BG_BP} bp "
+          f"({time.time() - t0:.1f} s to make)", flush=True)
+    ref, ref_info = scan(seqs, univ, off, n_e)
+    print(f"ebola175 alone: {ref_info['blocks']} blocks, {ref_info['pairs']} "
+          f"candidate pairs, wall {ref_info['wall']:.3f} s", flush=True)
+    dev, info = scan(seqs + bg, univ + list(range(n_e, n_e + BG_GENOMES)),
+                     off + [0] * BG_GENOMES, n_e + BG_GENOMES)
+    if info["blocks"][0] != 1 or info["blocks"][1] < 2:
+        fail(f"(i): blocks {info['blocks']}, not 1 x 2 or more")
+    check(f"phase 22 (i), ebola175 and {BG_GENOMES} x {BG_BP} bp", dev,
+          info, ref, n_e + BG_GENOMES)
+    del dev, bg
+    torch.cuda.empty_cache()
+
+    # (ii) probe blocks
+    cat = "".join(seqs)
+    offs = np.random.default_rng(12).integers(0, len(cat) - PIECE_BP,
+                                              size=N_PIECES)
+    pieces = [cat[o:o + PIECE_BP] for o in offs]
+    if len(searcher.probes) * N_PIECES < si._BLOCK_PAIR_KEYS:
+        fail("(ii): P x nU does not pass the probe blocks' key range")
+    ref, _ = scan(pieces[:n_e], list(range(n_e)), [0] * n_e, n_e)
+    dev, info = scan(pieces, list(range(N_PIECES)), [0] * N_PIECES,
+                     N_PIECES)
+    if info["blocks"][0] < 2 or info["blocks"][1] != 1:
+        fail(f"(ii): blocks {info['blocks']}, not 2 or more x 1")
+    check(f"phase 22 (ii), {N_PIECES} pieces of {PIECE_BP} bp", dev, info,
+          ref, N_PIECES)
+    del dev
+    torch.cuda.empty_cache()
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "catch_tpu_torch")):
         fail("catch_tpu_torch/ is not beside chip_smoke.py; run it from the "
@@ -1697,6 +1895,14 @@ def main():
                              r["name"]]
         rows.append(r)
     clock.done(20)
+
+    # Phase 21: ebola175 m2 in blocks, both solver routes and the axis.
+    blocked_design(torch, si, profiling, in175, stats5)
+    clock.done(21)
+
+    # Phase 22: the splits at real size, scan only.
+    blocked_scans(torch, si, profiling, device)
+    clock.done(22)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -377,6 +377,111 @@ def test_pack_merged_equals_twin(cuda, b_pos, n):
                                                        b_pos))
 
 
+def _pack_rows(n, seed, escapes=()):
+    """n merged rows sorted by key with small key deltas and lengths,
+    starts filling 24 bits; `escapes` is a list of (row, what) with what
+    'key' (a key jump past 16 bits before the row), 'len' (a length past
+    16 bits) or 'both'."""
+    rng = np.random.default_rng(seed)
+    dk = rng.integers(0, 4, size=n)
+    ln = rng.integers(0, 3000, size=n)
+    for r, what in escapes:
+        if what in ("key", "both"):
+            dk[r] = 0x10000 + r
+        if what in ("len", "both"):
+            ln[r] = 0x10000 + 7 * r
+    k = np.cumsum(dk)
+    s = rng.integers(0, 1 << 16, size=n)
+    return k, s, s + ln
+
+
+def _check_pack(cuda, rows, b_pos, tile):
+    """The kernel at `tile` against the twin, and the host decoder back to
+    the rows."""
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in rows]
+    got = si._pack_merged_cuda(*t, b_pos, tile)
+    torch.cuda.synchronize()
+    _assert_equal(got, si._pack_merged_plain(*t, b_pos))
+    for g, w in zip(si.unpack_merged(*(x.cpu().numpy() for x in got),
+                                     b_pos), rows):
+        assert np.array_equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("tile", [16, 48, 2048])
+@pytest.mark.parametrize("b_pos", [2, 3, 4])
+@pytest.mark.parametrize("size", ["1", "tile-1", "tile", "tile+1",
+                                  "3tile+5"])
+def test_pack_merged_tiles_equal_twin(cuda, tile, b_pos, size):
+    """K9 at every row count round its tile (forced small), each b_pos,
+    with a start that fills every byte of its field and an escape in
+    the last row."""
+    n = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "3tile+5": 3 * tile + 5}[size]
+    rng = np.random.default_rng(n + b_pos)
+    k = np.cumsum(rng.integers(0, 4, size=n))
+    top = 1 << (8 * b_pos)
+    s = rng.integers(0, top, size=n)
+    s[-1] = top - 1
+    e = s + rng.integers(0, 3000, size=n)
+    e[-1] = s[-1] + 0x10000
+    got = _check_pack(cuda, (k, s, e), b_pos, tile)
+    assert got[1].tolist() == [n - 1]
+    empty = torch.empty(0, dtype=torch.int64, device=cuda)
+    assert all(x.numel() == 0 for x in si._pack_merged_cuda(
+        empty, empty, empty, b_pos, tile))
+
+
+@pytest.mark.parametrize("case", ["none", "row0", "tile_edges", "every_tile",
+                                  "key_and_len"])
+def test_pack_merged_escapes_equal_twin(cuda, case):
+    """K9's escape lists with 64-row tiles: none; in row 0; at the rows
+    either side of each tile edge; in every tile (every row of one);
+    and a key-delta and a length escape in one row."""
+    tile, n = 64, 5 * 64 + 9
+    escapes = {
+        "none": [],
+        "row0": [(0, "key")],
+        "tile_edges": [(r, w) for j in range(1, 6) for r, w in
+                       ((j * tile - 1, "key"), (j * tile, "len"))],
+        "every_tile": [(r, "len") for r in range(tile, 2 * tile)]
+        + [(j * tile + 3, "key") for j in (0, 2, 3, 4, 5)],
+        "key_and_len": [(70, "both"), (71, "key"), (200, "both")],
+    }[case]
+    rows = _pack_rows(n, 3, escapes)
+    got = _check_pack(cuda, rows, 2, tile)
+    assert got[1].tolist() == sorted({r for r, _ in escapes})
+    assert got[2].numel() == got[3].numel() == len(got[1])
+
+
+def test_pack_merged_rejects_bad_tiles(cuda):
+    x = torch.zeros(4, dtype=torch.int64, device=cuda)
+    for tile in (8, 24, 4096):
+        with pytest.raises(ValueError, match="tile"):
+            si._pack_merged_cuda(x, x, x, 2, tile)
+
+
+def test_assemble_keys_past_2_31_equal_twin(cuda):
+    """K10 on merged rows whose int64 keys set * nU + universe pass 2^31,
+    as the probe blocks of a large scan give them."""
+    rng = np.random.default_rng(13)
+    nU, n_sets, n = 1 << 22, 900, 20000
+    key = np.unique(rng.integers(0, n_sets, size=n) * nU
+                    + rng.integers(0, nU, size=n))
+    key = np.repeat(key, rng.integers(1, 4, size=len(key)))
+    assert key.max() >= 1 << 31
+    start = rng.integers(0, 90, size=len(key))
+    end = start + rng.integers(1, 10, size=len(key))
+    offsets = np.arange(nU + 1, dtype=np.int64) * 100
+    rows = [torch.from_numpy(x).to(cuda) for x in (key, start, end, offsets)]
+    got = si.assemble(*rows, n_sets)
+    torch.cuda.synchronize()
+    want = si._assemble_plain(*rows, n_sets)
+    _assert_equal(got[:5], want[:5])
+    assert got[5:] == want[5:]
+    assert int(got[4].max()) >= nU // 2 and int(got[1].max()) > 1 << 28
+
+
 def test_design_on_cuda_equals_cpu(cuda):
     """The whole slice on the card gives the CPU twins' probe set."""
     from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter

@@ -65,8 +65,9 @@ def small_shapes(monkeypatch):
     monkeypatch.setattr(sj, "_UNION_CAP", 1 << 10)
 
 
-def _both_instances(genomes, model_kw, ext, universe_p=None, ranks=None):
-    """(catch_tpu instance, port instance) of the same scan."""
+def _scan_inputs(genomes, model_kw, universe_p=None, ranks=None):
+    """catch_tpu's searcher and the scan's inputs for `genomes`, as
+    SetCoverFilter builds them."""
     seqs = [s for g in genomes for s in g.seqs]
     probes = DuplicateFilter()._filter(
         make_candidate_probes_from_sequences(seqs, probe_length=80,
@@ -91,22 +92,42 @@ def _both_instances(genomes, model_kw, ext, universe_p=None, ranks=None):
     rank_vals = np.unique(ranks)
     rank_idx = np.searchsorted(rank_vals, ranks).astype(np.int32)
     costs = np.ones(len(probes), dtype=np.float32)
+    return dict(searcher=searcher, pid=pid, n_probes=len(probes),
+                scan=(sequences, seq_univ, seq_off, seq_len, nU),
+                universe_p=universe_p, rank_idx=rank_idx,
+                n_rank_vals=len(rank_vals), costs=costs)
 
+
+def _reference_instance(x, ext):
+    """catch_tpu's device-pipeline instance of _scan_inputs' x."""
     r = sj.scan_to_boundary_instance(
-        searcher, sequences, seq_univ, seq_off, seq_len, nU, ext,
-        universe_p, rank_idx, len(rank_vals), costs, pid)
+        x["searcher"], *x["scan"], ext, x["universe_p"], x["rank_idx"],
+        x["n_rank_vals"], x["costs"], x["pid"])
     assert r is not None
-    inst_j = sj.instance_to_host(r[0], r[1], pid, len(probes), rank_idx,
-                                 len(rank_vals), costs)
+    return sj.instance_to_host(r[0], r[1], x["pid"], x["n_probes"],
+                               x["rank_idx"], x["n_rank_vals"], x["costs"])
 
+
+def _port_scan(x, ext, mesh=None):
+    """The port's scan of _scan_inputs' x on the CPU: (dev, perm,
+    searcher stats)."""
     tsearcher = convert.searcher_from_reference(
-        convert.reference_arrays(searcher))
+        convert.reference_arrays(x["searcher"]), mesh=mesh)
     dev, perm = si.scan_to_boundary_instance(
-        tsearcher, sequences, seq_univ, seq_off, seq_len, nU, ext,
-        universe_p, pid, CPU)
-    inst_t = si.instance_to_host(dev, perm, pid, len(probes), rank_idx,
-                                 len(rank_vals), costs)
-    return inst_j, inst_t
+        tsearcher, *x["scan"], ext, x["universe_p"], x["pid"], CPU)
+    return dev, perm, tsearcher.stats
+
+
+def _port_instance(x, dev, perm):
+    return si.instance_to_host(dev, perm, x["pid"], x["n_probes"],
+                               x["rank_idx"], x["n_rank_vals"], x["costs"])
+
+
+def _both_instances(genomes, model_kw, ext, universe_p=None, ranks=None):
+    """(catch_tpu instance, port instance) of the same scan."""
+    x = _scan_inputs(genomes, model_kw, universe_p, ranks)
+    dev, perm, _ = _port_scan(x, ext)
+    return _reference_instance(x, ext), _port_instance(x, dev, perm)
 
 
 def _assert_same(inst_j, inst_t):
@@ -206,17 +227,218 @@ def test_searcher_from_reference_requires_every_field():
         convert.searcher_from_reference({"probe_codes": np.zeros((1, 4))})
 
 
-def test_pair_key_overflow_raises():
-    """P * n_universes beyond the 31-bit pair key raises (catch_tpu
-    returned None and took a host route)."""
+def test_pair_key_overflow_raises(monkeypatch):
+    """P * n_universes beyond the probe blocks' key range no longer
+    raises (catch_tpu returned None and took a host route): the same
+    searcher, with _BLOCK_PAIR_KEYS patched low, scans in probe blocks
+    and gives the unsplit instance."""
     rng = np.random.default_rng(7)
     seqs = ["".join(rng.choice(BASES, size=600)) for _ in range(2)]
     probes = [TProbe(p.seq_str) for p in make_candidate_probes_from_sequences(
         seqs, probe_length=80, probe_stride=40)]
     searcher = TProbeSearcher(probes, TCoverModel(2, 60))
-    P = len(searcher.probes)
-    nU = (1 << 31) // P + 1
-    with pytest.raises(ValueError, match="pair key"):
-        si.scan_to_boundary_instance(
-            searcher, seqs, np.zeros(2, np.int64), np.zeros(2, np.int64),
+    P, nU = len(searcher.probes), 2
+
+    def scan():
+        searcher.stats["candidates"] = 0
+        dev, perm = si.scan_to_boundary_instance(
+            searcher, seqs, np.arange(2), np.zeros(2, np.int64),
             np.array([600, 600]), nU, 0, np.ones(nU), np.arange(P), CPU)
+        return dev, perm, dict(searcher.stats)
+
+    want, perm1, stats1 = scan()
+    monkeypatch.setattr(si, "_BLOCK_PAIR_KEYS", P * nU // 3)
+    got, perm, stats = scan()
+    assert stats1["blocks"] == (1, 1) and stats["blocks"][0] > 3
+    assert stats["candidates"] == stats1["candidates"] > 0
+    assert np.array_equal(perm, perm1)
+    assert got["n_merged"] == want["n_merged"] > 0
+    for g, w in zip(got["merged"], want["merged"]):
+        assert torch.equal(g, w)
+    for k in ("offsets", "u_size_host", "can_uncover_host"):
+        assert np.array_equal(got[k], want[k]), k
+    monkeypatch.setattr(si, "_BLOCK_PAIR_KEYS", nU)
+    with pytest.raises(ValueError, match="pair key"):
+        scan()
+
+
+# ----------------------------------------------------------------------
+# The scan in blocks, past the kernels' 31-bit keys and positions
+# ----------------------------------------------------------------------
+
+def _patch_blocks(monkeypatch, x, split):
+    """Patch the block constants so that `split` ('probes', 'corpus' or
+    'both') cuts the scan of _scan_inputs' x: probe blocks of about a
+    quarter of the rows, corpus blocks of two sequences.  Returns the
+    port's searcher."""
+    sequences, _, _, _, nU = x["scan"]
+    t = convert.searcher_from_reference(convert.reference_arrays(
+        x["searcher"]))
+    if split in ("probes", "both"):
+        rows = -(-len(x["searcher"].probes) // 4)
+        monkeypatch.setattr(si, "_BLOCK_PAIR_KEYS", rows * nU + 1)
+    if split in ("corpus", "both"):
+        # Two sequences, their L pads, the leading pad L + kj with the
+        # base rounded down by up to s - 1, and the tail pad L + s + kj.
+        kj, s = si.join_params_stride(t)
+        two = max(len(a) + len(b) for a, b in zip(sequences, sequences[1:]))
+        monkeypatch.setattr(si, "_BLOCK_POSITIONS",
+                            two + 4 * t.Lmax + 2 * kj + 2 * s)
+    return t
+
+
+def _assert_split_equal(x, ext, got, want, inst_j):
+    """The split scan (dev, perm, stats) against the unsplit one and
+    catch_tpu's instance: merged rows, instance fields and pick order
+    exactly equal, and the candidate count equal."""
+    dev, perm, stats = got
+    dev1, perm1, stats1 = want
+    assert stats["candidates"] == stats1["candidates"] > 0
+    assert np.array_equal(perm, perm1)
+    for g, w in zip(dev["merged"], dev1["merged"]):
+        assert torch.equal(g, w)
+    inst = _port_instance(x, dev, perm)
+    for f in INSTANCE_FIELDS:
+        assert np.array_equal(np.asarray(getattr(inst, f)),
+                              np.asarray(getattr(inst_j, f))), f
+    _assert_same(inst_j, inst)
+
+
+@pytest.mark.parametrize("split,n_chrs", [
+    ("probes", 1), ("corpus", 1), ("both", 1), ("both", 3)],
+    ids=["probe_blocks", "corpus_blocks", "both", "both_multichrom"])
+def test_split_scan_equals_unsplit_and_catch_tpu(small_shapes, monkeypatch,
+                                                 split, n_chrs):
+    """Probe blocks, corpus blocks of whole sequences, or both (with
+    genomes whose chromosomes fall in different corpus blocks): the
+    instance, the pick order and the candidate count equal the unsplit
+    run's and catch_tpu's."""
+    rng = np.random.default_rng(29)
+    genomes = _corpus(rng, 4, 1500, n_chrs=n_chrs)
+    x = _scan_inputs(genomes, dict(mismatches=2, lcf_thres=60))
+    inst_j = _reference_instance(x, 20)
+    want = _port_scan(x, 20)
+    assert want[2]["blocks"] == (1, 1)
+    t = _patch_blocks(monkeypatch, x, split)
+    got = _port_scan(x, 20)
+    n_p, n_c = got[2]["blocks"]
+    assert (n_p > 1) == (split != "corpus") and (n_c > 1) == (
+        split != "probes")
+    if n_chrs > 1:
+        # some genome's chromosomes lie in two corpus blocks
+        seq_lens = np.asarray(x["scan"][3])
+        starts = si.corpus_layout(t, seq_lens)
+        plan = si.plan_corpus_blocks(t, seq_lens, starts, x["scan"][1])
+        block_of = np.repeat(np.arange(len(plan)),
+                             [i1 - i0 for i0, i1, _ in plan])
+        assert len(plan) == n_c and any(
+            len(set(block_of[x["scan"][1] == j])) > 1
+            for j in range(len(genomes)))
+    _assert_split_equal(x, 20, got, want, inst_j)
+
+
+def _counting(fn):
+    """fn, with each call counted in `launches`."""
+    def wrapped(*args, **kwargs):
+        wrapped.launches += 1
+        return fn(*args, **kwargs)
+    wrapped.launches = 0
+    wrapped.__name__ = fn.__name__
+    return wrapped
+
+
+@pytest.mark.parametrize("split", ["probes", "both"])
+def test_split_scan_on_four_places(small_shapes, monkeypatch, split):
+    """The blocks on a mesh of 4 virtual CPU places: every (probe block,
+    corpus block) pair runs the per-place split, the launches by place
+    add up to the totals, and the instance equals the unsplit
+    single-place run's and catch_tpu's."""
+    from catch_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setenv("CATCH_TPU_VIRTUAL_DEVICES", "4")
+    rng = np.random.default_rng(31)
+    genomes = _corpus(rng, 4, 1500)
+    x = _scan_inputs(genomes, dict(mismatches=2, lcf_thres=60))
+    inst_j = _reference_instance(x, 20)
+    want = _port_scan(x, 20)
+    _patch_blocks(monkeypatch, x, split)
+    # The twins launch nothing: count the wrappers' calls as launches.
+    calls = {}
+    for name in ("rolling_hash", "lookup_expand", "verify_windows",
+                 "dedup_pairs"):
+        monkeypatch.setattr(si, name, _counting(getattr(si, name)))
+        calls[name] = getattr(si, name)
+    got = _port_scan(x, 20, mesh=make_mesh(4, "cpu"))
+    n_p, n_c = got[2]["blocks"]
+    assert n_p > 1 and (n_c > 1) == (split == "both")
+    by_place = got[2]["launches_by_place"]
+    assert sorted(by_place) == [0, 1, 2, 3]
+    for name in ("rolling_hash", "lookup_expand", "verify_windows"):
+        assert all(v[name] == n_p * n_c for v in by_place.values()), name
+        tables = n_p if name == "rolling_hash" else 0
+        assert calls[name].launches == 4 * n_p * n_c + tables, name
+    assert calls["dedup_pairs"].launches == n_p * n_c
+    _assert_split_equal(x, 20, got, want, inst_j)
+
+
+def test_sequence_longer_than_a_corpus_block_raises(monkeypatch):
+    """A single sequence that no corpus block holds raises, naming it
+    (catch_tpu designs it on the host; the kernels' positions are
+    31-bit)."""
+    rng = np.random.default_rng(9)
+    genomes = [TGenome.from_one_seq("".join(rng.choice(BASES, size=n)))
+               for n in (500, 2000, 600)]
+    seqs = [g.seqs[0] for g in genomes]
+    probes = [TProbe(p.seq_str) for p in make_candidate_probes_from_sequences(
+        seqs[:1], probe_length=80, probe_stride=40)]
+    searcher = TProbeSearcher(probes, TCoverModel(2, 60))
+    monkeypatch.setattr(si, "_BLOCK_POSITIONS", 1500)
+    with pytest.raises(ValueError, match=r"sequence 1 \(genome 1, 2000 bp\)"):
+        si.scan_to_boundary_instance(
+            searcher, seqs, np.arange(3), np.zeros(3, np.int64),
+            np.array([len(s) for s in seqs]), 3, 0, np.ones(3),
+            np.arange(len(probes)), CPU)
+
+
+def test_long_position_axis_takes_the_host_solver(small_shapes, monkeypatch,
+                                                   caplog):
+    """Under CATCH_TPU_SOLVE=device, a group whose position axis reaches
+    the device solver's limit (patched low here) takes the host route,
+    as catch_tpu does: the host route's picks, catch_tpu's warning, and
+    no stage E.  solve_instance(force_device=True) gives the host lazy
+    solver's picks there."""
+    rng = np.random.default_rng(41)
+    genomes = _corpus(rng, 4, 1500)
+    probes = DuplicateFilter()._filter(make_candidate_probes_from_sequences(
+        [s for g in genomes for s in g.seqs], probe_length=80,
+        probe_stride=40))
+    tprobes = [TProbe(p.seq_str) for p in probes]
+    tgenomes = [TGenome(list(g.seqs), g.chrs) for g in genomes]
+
+    def design():
+        f = TSetCoverFilter(mismatches=2, lcf_thres=60, cover_extension=25,
+                            device="cpu")
+        return [p.seq_str for p in f.filter([tprobes], [tgenomes],
+                                            input_is_grouped=True)[0]]
+
+    host = design()
+    monkeypatch.setenv("CATCH_TPU_SOLVE", "device")
+    assert design() == host
+    monkeypatch.setattr(sct, "_DEVICE_AXIS_LIMIT", 1000)
+
+    def no_stage_e(*args, **kwargs):
+        raise AssertionError("ensure_assembled was called")
+
+    monkeypatch.setattr(si, "ensure_assembled", no_stage_e)
+    caplog.set_level("WARNING")
+    assert design() == host and len(host) > 0
+    assert "Global position axis exceeds int32" in caplog.text
+
+    x = _scan_inputs(genomes, dict(mismatches=2, lcf_thres=60))
+    dev, perm, _ = _port_scan(x, 25)
+    inst = _port_instance(x, dev, perm)
+    assert inst.u_len >= 1000
+    order = sct.solve_instance(inst, force_device=True, device="cpu")
+    assert np.array_equal(order, sct._solve_host_lazy(inst))
+    assert np.array_equal(order, scj.solve_instance(_reference_instance(
+        x, 25)))

@@ -501,9 +501,17 @@ def test_unassembled_or_too_long_instances_raise():
     inst.ivl_end[-1] = inst.u_len + 1
     with pytest.raises(ValueError, match="outside the position axis"):
         sct.solve_instance(inst, force_device=True, device="cpu")
+    inst.ivl_end[-1] -= 1
     inst.u_len = 1 << 31
     with pytest.raises(ValueError, match="int32"):
-        sct.solve_instance(inst, force_device=True, device="cpu")
+        sct.check_instance_axis(inst)
+    with pytest.raises(ValueError, match="int32"):
+        sct._solve_device_steps(inst, torch.device("cpu"))
+    # solve_instance(force_device=True) takes the host lazy solver on
+    # such an axis, as catch_tpu does
+    assert np.array_equal(
+        sct.solve_instance(inst, force_device=True, device="cpu"),
+        sct._solve_host_lazy(inst))
     dev = dict(offsets=np.array([0, 1 << 31]), merged=None)
     with pytest.raises(ValueError, match="int32"):
         si.ensure_assembled(dev, np.arange(2), np.arange(2),
