@@ -46,9 +46,10 @@ _I32 = ctypes.c_int
 # C signatures of every entry point (all return int: cudaGetLastError).
 _SIGNATURES = {
     "ct_rolling_hash": [_P, _I64, _I64, _I32, _I64, _P, _P],
-    "ct_le_merge": [_P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
-                    _P, _P, _P, _P, _I32, _P],
-    "ct_max_pair": [_P, _P, _P, _I64, _P, _P],
+    "ct_seed_table": [_P, _I64, _I64, _I32, _P, _P, _P],
+    "ct_le_merge": [_P, _P, _I64, _P, _P, _I64, _I64, _I64, _I64, _I32, _P,
+                    _P, _P, _P, _I32, _P],
+    "ct_max_pair": [_P, _P, _I64, _P, _P],
     "ct_dd_run": [_P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _I32, _P],
     "ct_unique_flags": [_P, _I64, _P, _P],
     "ct_vw_mask": [_P, _I64, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P,

@@ -6,8 +6,8 @@
 // pairs that the places' sample ranges found (3.54 M on ebola175 at 4
 // places, at most a few thousand a probe).
 //
-// One pass (ct_max_pair, also lookup_expand's) finds the bucket count
-// and checks the range; one host read.  Then one C call (ct_dd_run,
+// One pass (ct_max_pair) finds the bucket count and checks the range;
+// one host read.  Then one C call (ct_dd_run,
 // emit = 0) buckets the pairs by probe: a histogram (warp-aggregated
 // atomics: the caller's pairs come as place-sorted runs, so a warp's
 // lanes mostly share one probe), the bucket offsets (scan.cuh), and
@@ -45,18 +45,15 @@ __device__ __forceinline__ unsigned dd_lanemask_lt() {
 }
 
 // out[0], out[1] = the largest x[i], y[i] as unsigned 64-bit words (so
-// a negative value is larger than any valid one), over the rows whose
-// key is not HMAX (every row when key is null).  out starts at 0.  The
-// bounds read of dedup_pairs and lookup_expand.
+// a negative value is larger than any valid one).  out starts at 0.
+// The bounds read of dedup_pairs.
 __global__ void max_pair_kernel(const int64_t* __restrict__ x,
-                                const int64_t* __restrict__ y,
-                                const int64_t* __restrict__ key, int64_t n,
+                                const int64_t* __restrict__ y, int64_t n,
                                 unsigned long long* __restrict__ out) {
     unsigned long long mx = 0, my = 0;
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
-        if (key && key[i] == CT_HMAX) continue;
         const unsigned long long u = (unsigned long long)x[i];
         const unsigned long long v = (unsigned long long)y[i];
         mx = u > mx ? u : mx;
@@ -417,12 +414,12 @@ extern "C" int ct_dd_run(const void* p, const void* a, int64_t n,
     return (int)ct_scan(dcnt, n_b, d_incl, st);
 }
 
-extern "C" int ct_max_pair(const void* x, const void* y, const void* key,
-                           int64_t n, void* out, void* stream) {
+extern "C" int ct_max_pair(const void* x, const void* y, int64_t n,
+                           void* out, void* stream) {
     if (n > 0) {
         max_pair_kernel<<<dd_grid(n, 132 * 8), DD_THREADS, 0,
                           ct_stream(stream)>>>(
-            (const int64_t*)x, (const int64_t*)y, (const int64_t*)key, n,
+            (const int64_t*)x, (const int64_t*)y, n,
             (unsigned long long*)out);
     }
     return (int)cudaGetLastError();

@@ -12,14 +12,16 @@
 // Here the plan is inverted and no raw hit is ever stored.  The
 // wrapper sorts the call's n_q sample hashes with their ids
 // (torch.sort, stable: equal hashes keep ascending ids); then one C
-// call (ct_le_merge, emit = 0) packs them into 32-bit words, counts each
-// probe's valid table rows and lays the rows out probe-major (CSR by
-// probe: hash and bias = sample0 * s - offset), and runs the counting
-// pass.  One warp per probe finds, for every offset of the
+// call (ct_le_merge, emit = 0) packs them into 32-bit words and runs
+// the counting pass over the probe-major seed table of stage T
+// (csrc/rolling_hash.cu ct_seed_table: probe p's entries offset << 32 |
+// hash in the first cnt[p] of its W slots), which it reads as it is.
+// One warp per probe finds, for every offset of the
 // probe, its run of equal hashes among the sorted samples by binary
 // search (the top levels from a shared-memory sample of every
 // stride-th hash, the rest from L2), and merges the runs: a run's
-// alignments id * s + bias ascend with the ids, so the probe's pairs
+// alignments id * s + bias (bias = sample0 * s - offset) ascend with
+// the ids, so the probe's pairs
 // are a k-way merge of its offsets' runs.  A step takes the warp's
 // minimum head (__reduce_min_sync on 32-bit alignments) and advances
 // every head equal to it, which is the dedup; steps = distinct pairs,
@@ -27,10 +29,10 @@
 // the total); the emit pass (ct_le_merge, emit = 1) reuses the runs it
 // found and writes each probe's pairs at its offset, staged one per
 // lane and stored 32 at a time.  A lane holds its
-// offsets' heads in registers (2, 4 or 8 slots, from the table's widest
-// probe), with the next sample id of each loaded one advance ahead; a
+// offsets' heads in registers (2, 4 or 8 slots, from the table's row
+// width W), with the next sample id of each loaded one advance ahead; a
 // probe with more offsets than its warp's slots keeps them in scratch
-// of one entry per table row, so a probe may have any number of
+// of one entry per table slot, so a probe may have any number of
 // offsets and a run any length.
 //
 // Bound on the card: the bytes are small (the table, the samples, 16
@@ -50,39 +52,16 @@
 #define LE_WARPS 8                  // warps (probes in flight) a block
 #define LE_CACHE 2048               // sampled hashes kept in shared memory
 
-// Sorted samples as 32-bit words and ids; the probe-side row counts.
-__global__ void le_prepare_kernel(const int64_t* __restrict__ qs,
-                                  const int64_t* __restrict__ qi, int64_t n_q,
-                                  const int64_t* __restrict__ tbl_h,
-                                  const int64_t* __restrict__ tbl_p,
-                                  int64_t n_tbl,
-                                  uint32_t* __restrict__ sh,
-                                  int32_t* __restrict__ sid,
-                                  unsigned long long* __restrict__ pcnt) {
+// Sorted samples as 32-bit words and ids.
+__global__ void le_pack_samples_kernel(const int64_t* __restrict__ qs,
+                                       const int64_t* __restrict__ qi,
+                                       int64_t n_q, uint32_t* __restrict__ sh,
+                                       int32_t* __restrict__ sid) {
     int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n_q) {
         sh[i] = (uint32_t)qs[i];
         sid[i] = (int32_t)qi[i];
     }
-    if (i < n_tbl && tbl_h[i] != CT_HMAX) atomicAdd(&pcnt[tbl_p[i]], 1ull);
-}
-
-// Each valid row into its probe's CSR slot; pcnt counts down to 0.
-__global__ void le_scatter_kernel(const int64_t* __restrict__ tbl_h,
-                                  const int64_t* __restrict__ tbl_p,
-                                  const int64_t* __restrict__ tbl_pos,
-                                  int64_t n_tbl, int64_t base,
-                                  const int64_t* __restrict__ po_incl,
-                                  unsigned long long* __restrict__ pcnt,
-                                  uint32_t* __restrict__ eh,
-                                  int32_t* __restrict__ ebias) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n_tbl || tbl_h[i] == CT_HMAX) return;
-    int64_t p = tbl_p[i];
-    unsigned long long c = atomicAdd(&pcnt[p], ~0ull);   // -1, old value
-    int64_t slot = po_incl[p] - (int64_t)c;
-    eh[slot] = (uint32_t)tbl_h[i];
-    ebias[slot] = (int32_t)(base - tbl_pos[i]);
 }
 
 // First index i in [0, n) with sh[i] >= h (UPPER: sh[i] > h), the top
@@ -115,11 +94,12 @@ struct LeArgs {
     const uint32_t* sh;        // sorted sample hashes
     const int32_t* sid;        // their sample ids
     int n_q, stride, s;
-    const int64_t* po_incl;    // probe CSR: inclusive ends
+    const int64_t* ent;        // the seed table: offset << 32 | hash
+    const int32_t* cnt;        // entries of each probe
+    int64_t width;             // slots of a probe in ent
     int64_t n_probes;
-    const uint32_t* eh;        // entry hash
-    const int32_t* ebias;      // entry sample0 * s - offset
-    int32_t* head;             // one entry per row: the scratch path's
+    int base;                  // sample0 * s: bias = base - offset
+    int32_t* head;             // one entry per slot: the scratch path's
     int32_t* cur;              // heads and run cursors and ends; the
     int32_t* end;              // register path's runs, counting to emit
     int64_t* pair_cnt;
@@ -171,12 +151,13 @@ __device__ void le_merge_regs(const LeArgs& g, const uint32_t* cache,
         hd[j] = INT_MAX;
         cu[j] = en[j] = bi[j] = nx[j] = 0;
         if (e < e1) {
+            const int64_t x = g.ent[e];
             int lo, hi;
             if (EMIT) {           // the counting pass found the runs
                 lo = g.cur[e];
                 hi = g.end[e];
             } else {
-                const uint32_t h = g.eh[e];
+                const uint32_t h = (uint32_t)x;
                 lo = le_search<false>(g.sh, g.n_q, cache, n_cache, g.stride,
                                       h);
                 hi = le_search<true>(g.sh, g.n_q, cache, n_cache, g.stride,
@@ -184,7 +165,7 @@ __device__ void le_merge_regs(const LeArgs& g, const uint32_t* cache,
                 g.cur[e] = lo;
                 g.end[e] = hi;
             }
-            bi[j] = g.ebias[e];
+            bi[j] = g.base - (int)(x >> 32);
             cu[j] = lo;
             en[j] = hi;
             if (lo < hi) hd[j] = __ldg(g.sid + lo) * g.s + bi[j];
@@ -211,20 +192,25 @@ __device__ void le_merge_regs(const LeArgs& g, const uint32_t* cache,
     }
 }
 
+// An entry's bias, sample0 * s - its offset.
+__device__ __forceinline__ int le_bias(const LeArgs& g, int64_t e) {
+    return g.base - (int)(g.ent[e] >> 32);
+}
+
 // The same merge for a probe of any number of offsets, their state in
-// the scratch arrays (one entry per table row).
+// the scratch arrays (one entry per table slot).
 template <int EMIT>
 __device__ void le_merge_scratch(const LeArgs& g, const uint32_t* cache,
                                  int n_cache, int64_t e0, int64_t e1,
                                  int lane, LeOut<EMIT>& o) {
     int mine = INT_MAX;
     for (int64_t e = e0 + lane; e < e1; e += 32) {
-        const uint32_t h = g.eh[e];
+        const uint32_t h = (uint32_t)g.ent[e];
         const int lo = le_search<false>(g.sh, g.n_q, cache, n_cache,
                                         g.stride, h);
         const int hi = le_search<true>(g.sh, g.n_q, cache, n_cache,
                                        g.stride, h);
-        const int v = lo < hi ? __ldg(g.sid + lo) * g.s + g.ebias[e]
+        const int v = lo < hi ? __ldg(g.sid + lo) * g.s + le_bias(g, e)
                               : INT_MAX;
         g.head[e] = v;
         g.cur[e] = lo;
@@ -241,8 +227,8 @@ __device__ void le_merge_scratch(const LeArgs& g, const uint32_t* cache,
                 int v = g.head[e];
                 if (v == m) {
                     const int c = g.cur[e] + 1;
-                    v = c < g.end[e] ? __ldg(g.sid + c) * g.s + g.ebias[e]
-                                     : INT_MAX;
+                    v = c < g.end[e]
+                        ? __ldg(g.sid + c) * g.s + le_bias(g, e) : INT_MAX;
                     g.head[e] = v;
                     g.cur[e] = c;
                 }
@@ -256,8 +242,8 @@ __device__ void le_merge_scratch(const LeArgs& g, const uint32_t* cache,
 // (the probes' pairs vary tenfold).  EMIT = 0: pair_cnt[p] = the
 // probe's distinct pairs.  EMIT = 1: write them at pair_incl[p] -
 // pair_cnt[p] (pair_incl the inclusive cumsum of the counts).  A probe
-// of at most 32 * J offsets merges in registers, a longer one (a probe
-// longer than the table's widest, or repeated table rows) in scratch.
+// of at most 32 * J entries merges in registers, a longer one (a table
+// wider than 256 slots) in scratch.
 template <int J, int EMIT>
 __global__ void __launch_bounds__(32 * LE_WARPS)
 le_merge_kernel(const LeArgs g) {
@@ -273,8 +259,8 @@ le_merge_kernel(const LeArgs g) {
         if (lane == 0) taken = atomicAdd(g.next, 1ull);
         const int64_t p = (int64_t)__shfl_sync(0xffffffffu, taken, 0);
         if (p >= g.n_probes) break;
-        const int64_t e0 = p == 0 ? 0 : g.po_incl[p - 1];
-        const int64_t e1 = g.po_incl[p];
+        const int64_t e0 = p * g.width;
+        const int64_t e1 = e0 + g.cnt[p];
         LeOut<EMIT> o{p, EMIT ? g.pair_incl[p] - g.pair_cnt[p] : 0, 0, 0};
         if (e1 - e0 <= 32 * J)
             le_merge_regs<J, EMIT>(g, cache, n_cache, e0, e1, lane, o);
@@ -316,58 +302,45 @@ static cudaError_t le_merge(const LeArgs& g, int lane_slots,
 }
 
 // The whole of lookup_expand after the sample sort, in two calls on one
-// stream.  ws32 (int32): sh, sid [n_q]; eh, ebias, head, cur, end
-// [n_tbl].  ws64 (int64): pcnt, po_incl, pair_cnt, pair_incl
-// [n_probes], the probe counter [1].
-//   emit = 0: the sorted samples (qs, qi) packed, the probe-side CSR,
-//     the counting pass and pair_incl, whose last entry the wrapper
-//     reads;
+// stream.  ent, cnt: the seed table of n_probes probes, width slots
+// each.  ws32 (int32): sh, sid [n_q]; head, cur, end [n_probes *
+// width].  ws64 (int64): pair_cnt, pair_incl [n_probes], the probe
+// counter [1].
+//   emit = 0: the sorted samples (qs, qi) packed, the counting pass and
+//     pair_incl, whose last entry the wrapper reads;
 //   emit = 1: the emit pass into p_out, a_out [that total].
 // lane_slots (2, 4 or 8): offsets a lane holds in registers.
 extern "C" int ct_le_merge(const void* qs, const void* qi, int64_t n_q,
-                           const void* tbl_h, const void* tbl_p,
-                           const void* tbl_pos, int64_t n_tbl, int64_t base,
-                           int64_t s, int64_t n_probes, int lane_slots,
-                           void* ws32, void* ws64, void* p_out, void* a_out,
-                           int emit, void* stream) {
+                           const void* ent, const void* cnt,
+                           int64_t n_probes, int64_t width, int64_t base,
+                           int64_t s, int lane_slots, void* ws32, void* ws64,
+                           void* p_out, void* a_out, int emit, void* stream) {
     if (lane_slots != 2 && lane_slots != 4 && lane_slots != 8)
         return (int)cudaErrorInvalidValue;
-    if (n_probes <= 0 || n_q <= 0 || n_tbl <= 0)
+    if (n_probes <= 0 || n_q <= 0 || width <= 0)
         return (int)cudaGetLastError();
     cudaStream_t st = ct_stream(stream);
     int32_t* w32 = (int32_t*)ws32;
+    const int64_t n_slots = n_probes * width;
     uint32_t* sh = (uint32_t*)w32;
     int32_t* sid = w32 + n_q;
-    uint32_t* eh = (uint32_t*)(w32 + 2 * n_q);
-    int32_t* ebias = w32 + 2 * n_q + n_tbl;
-    int32_t* head = w32 + 2 * n_q + 2 * n_tbl;
-    int32_t* cur = w32 + 2 * n_q + 3 * n_tbl;
-    int32_t* end = w32 + 2 * n_q + 4 * n_tbl;
+    int32_t* head = w32 + 2 * n_q;
+    int32_t* cur = head + n_slots;
+    int32_t* end = cur + n_slots;
     int64_t* w64 = (int64_t*)ws64;
-    int64_t* pcnt = w64;
-    int64_t* po = w64 + n_probes;
-    int64_t* pair_cnt = w64 + 2 * n_probes;
-    int64_t* pair_incl = w64 + 3 * n_probes;
+    int64_t* pair_cnt = w64;
+    int64_t* pair_incl = w64 + n_probes;
     LeArgs g{sh, sid, (int)n_q, (int)((n_q + LE_CACHE - 1) / LE_CACHE),
-             (int)s, po, n_probes, eh, ebias, head, cur, end, pair_cnt,
-             pair_incl, (int64_t*)p_out, (int64_t*)a_out,
-             (unsigned long long*)(w64 + 4 * n_probes)};
+             (int)s, (const int64_t*)ent, (const int32_t*)cnt, width,
+             n_probes, (int)base, head, cur, end, pair_cnt, pair_incl,
+             (int64_t*)p_out, (int64_t*)a_out,
+             (unsigned long long*)(w64 + 2 * n_probes)};
     if (emit) return (int)le_merge<1>(g, lane_slots, st);
 
-    cudaError_t err = cudaMemsetAsync(pcnt, 0, n_probes * sizeof(int64_t),
-                                      st);
+    le_pack_samples_kernel<<<ct_blocks(n_q, 256), 256, 0, st>>>(
+        (const int64_t*)qs, (const int64_t*)qi, n_q, sh, sid);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const int64_t n = n_q > n_tbl ? n_q : n_tbl;
-    le_prepare_kernel<<<ct_blocks(n, 256), 256, 0, st>>>(
-        (const int64_t*)qs, (const int64_t*)qi, n_q, (const int64_t*)tbl_h,
-        (const int64_t*)tbl_p, n_tbl, sh, sid, (unsigned long long*)pcnt);
-    if ((err = ct_scan(pcnt, n_probes, po, st)) != cudaSuccess)
-        return (int)err;
-    le_scatter_kernel<<<ct_blocks(n_tbl, 256), 256, 0, st>>>(
-        (const int64_t*)tbl_h, (const int64_t*)tbl_p,
-        (const int64_t*)tbl_pos, n_tbl, base, po,
-        (unsigned long long*)pcnt, eh, ebias);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     if ((err = le_merge<0>(g, lane_slots, st)) != cudaSuccess)
         return (int)err;
     return (int)ct_scan(pair_cnt, n_probes, pair_incl, st);

@@ -5,9 +5,10 @@ probe codes to the merged cover intervals of every (probe, genome) pair
 and the per-genome coverage union, through five hand-written CUDA
 kernels (sources in catch_tpu_torch/csrc/):
 
-  T. Probe seed table: K1 rolling_hash of every kj-mer of every probe
-     row, then a stable torch.sort into (hash, probe, offset).
-  A. Query sampling: K1 at every s-th corpus position.
+  T. Probe seed table: K1 build_table hashes every kj-mer of every
+     probe row into a probe-major table, each probe's valid (offset,
+     hash) entries in its row of slots, with no sort.
+  A. Query sampling: K1 rolling_hash at every s-th corpus position.
   B. Pairs: K2 lookup_expand sorts the samples by hash and, one warp
      per probe, merges the runs of samples that each probe offset's hash
      finds into the probe's distinct (probe, alignment) pairs; no raw
@@ -57,11 +58,14 @@ rows, each with keys p_local * nU + u below _BLOCK_PAIR_KEYS, and corpus
 blocks of whole sequences, each a window of the whole corpus layout
 shorter than _BLOCK_POSITIONS whose base is a multiple of the stride,
 so every corpus sample falls in exactly one block and every pair is
-found in one.  Stages A to C run for each (probe block, corpus block);
-stage D joins a probe block's spans over the corpus blocks (they are
-universe-local) and merges them; the merged keys are then lifted to
-int64 (p0 + p_local) * nU + u, and the blocks' unions get one union
-more.  Only a single sequence too long for a corpus block raises.
+found in one.  A sequence too long for a block of its own is cut into
+pieces, a block each: a piece keeps the pairs of its range of the
+sequence's alignments (its core), reads its codes with flanks of L, and
+verifies them against the sequence's own bounds (corpus_block).  Stages
+A to C run for each (probe block, corpus block); stage D joins a probe
+block's spans over the corpus blocks (they are universe-local) and
+merges them; the merged keys are then lifted to int64 (p0 + p_local) *
+nU + u, and the blocks' unions get one union more.
 
 With a mesh of more than one place on the searcher (ProbeSearcher(...,
 mesh=)), stages A, B and C are split over the places by contiguous
@@ -87,7 +91,7 @@ from catch_tpu_torch.ops import encode
 from catch_tpu_torch.utils import profiling
 
 __all__ = ["scan_to_boundary_instance", "instance_to_host",
-           "ensure_assembled", "rolling_hash", "lookup_expand",
+           "ensure_assembled", "build_table", "rolling_hash", "lookup_expand",
            "dedup_pairs", "verify_windows", "segmented_merge", "pack_merged",
            "unpack_merged", "assemble", "KERNELS"]
 
@@ -151,9 +155,9 @@ def rolling_hash(codes, n_out, stride, kj, last_pos):
     Returns int64[n_out]: HMAX for a window that holds PAD or starts
     past last_pos, else min(h, HMAX - 1).
 
-    Replaces catch_tpu/ops/scan_instance.py _build_table_jit (:129-162)
-    and _hash_samples_jit (:174-194); the kernel is
-    csrc/rolling_hash.cu, bound by device-memory bandwidth.
+    Replaces catch_tpu/ops/scan_instance.py _hash_samples_jit
+    (:174-194); the kernel is csrc/rolling_hash.cu, bound by
+    device-memory bandwidth.
     """
     _require(codes, torch.uint8, "codes")
     if n_out and codes.numel() < (n_out - 1) * stride + kj:
@@ -190,19 +194,72 @@ def _rolling_hash_plain(codes, n_out, stride, kj, last_pos):
                        torch.full_like(h, HMAX))
 
 
+@_build.on_own_device
 def build_table(codes, kj):
-    """Stage T: the sorted (hash, probe, offset) table of every probe
-    kj-mer.  codes: uint8[P, L] probe rows (PAD-filled).  Rows are laid
-    out [L codes][kj PAD] so no window spans two probes; rows holding
-    PAD hash to HMAX and sort last."""
+    """Stage T: the seed table of every probe kj-mer, probe-major.
+
+    codes: uint8[P, L] probe rows (PAD-filled).  Returns (ent, cnt):
+    ent int64[P, W], W = max(L - kj + 1, 0), and cnt int32[P].  Probe
+    p's windows without PAD, in offset order, fill ent[p, :cnt[p]], each
+    as offset << 32 | min(h, HMAX - 1); its other slots hold 0.  A
+    window that holds PAD is counted out, never stored.
+
+    Replaces catch_tpu/ops/scan_instance.py _build_table_jit (:129-162),
+    which gives the same entries as a table sorted by hash, its
+    sentinel rows last; lookup_expand reads this one by probe.  The
+    kernel is csrc/rolling_hash.cu (ct_seed_table, one warp a probe, bound
+    by device-memory bandwidth), one launch and no sort.
+    """
+    _require(codes, torch.uint8, "codes")
+    if codes.dim() != 2:
+        raise ValueError("codes must be [P, L]")
+    if _on_cpu(codes):
+        return _build_table_plain(codes, kj)
     P, L = codes.shape
-    row = L + kj
-    flat = torch.zeros(P * row + kj - 1, dtype=torch.uint8,
-                       device=codes.device)
-    flat[:P * row].view(P, row)[:, :L] = codes
-    h = rolling_hash(flat, P * row, 1, kj, P * row - 1)
-    tbl_h, f = torch.sort(h, stable=True)
-    return tbl_h, f // row, f % row
+    ent = torch.empty((P, max(L - kj + 1, 0)), dtype=torch.int64,
+                      device=codes.device)
+    cnt = torch.empty(P, dtype=torch.int32, device=codes.device)
+    if P == 0:
+        return ent, cnt
+    lib = _build.library()
+    _build.check(lib.ct_seed_table(
+        _build.ptr(codes), P, L, kj, _build.ptr(ent), _build.ptr(cnt),
+        _build.stream_of(codes)), "seed_table")
+    build_table.launches += 1
+    return ent, cnt
+
+
+build_table.launches = 0
+
+
+def _build_table_plain(codes, kj):
+    """Plain-PyTorch twin of build_table."""
+    P, L = codes.shape
+    W = max(L - kj + 1, 0)
+    dev = codes.device
+    c = codes.to(torch.int64)
+    h = torch.zeros((P, W), dtype=torch.int64, device=dev)
+    ok = torch.ones((P, W), dtype=torch.bool, device=dev)
+    for j in range(kj):
+        cj = c[:, j:j + W]
+        h = (_mul_mod32(h, MULT) + cj) & _MASK32
+        ok &= cj > 0
+    off = torch.arange(W, dtype=torch.int64, device=dev)
+    ent = torch.zeros((P, W), dtype=torch.int64, device=dev)
+    rows = torch.nonzero(ok, as_tuple=True)[0]
+    slot = torch.cumsum(ok, 1)[ok] - 1
+    ent[rows, slot] = ((off[None, :] << 32)
+                       | torch.clamp(h, max=HMAX - 1))[ok]
+    return ent, ok.sum(1, dtype=torch.int32)
+
+
+def table_entries(ent, cnt):
+    """(hash, probe, offset) int64 of a build_table table's entries,
+    probe-major."""
+    valid = (torch.arange(ent.shape[1], device=ent.device)[None, :]
+             < cnt[:, None])
+    e = ent[valid]
+    return e & _MASK32, torch.nonzero(valid, as_tuple=True)[0], e >> 32
 
 
 # ----------------------------------------------------------------------
@@ -210,32 +267,34 @@ def build_table(codes, kj):
 # ----------------------------------------------------------------------
 
 @_build.on_own_device
-def lookup_expand(tbl_h, tbl_p, tbl_pos, q, s, sample0=0):
+def lookup_expand(ent, cnt, q, s, sample0=0):
     """Deduplicated (probe, alignment) pairs of the sample hashes.
 
-    Sample g of q is corpus sample sample0 + g (corpus position
-    (sample0 + g) * s); it matches every table row with its hash; a
-    match with (probe p, offset pos) is the pair
-    (p, (sample0 + g) * s - pos).  Alignments are nonnegative (the
-    corpus's leading pad) and below 2^31: (sample0 + n_q) * s must be,
-    or ValueError.
+    (ent, cnt) is build_table's seed table.  Sample g of q is corpus
+    sample sample0 + g (corpus position (sample0 + g) * s); it matches
+    every entry with its hash; a match with the entry (probe p, offset
+    pos) is the pair (p, (sample0 + g) * s - pos).  Alignments are
+    nonnegative (the corpus's leading pad) and below 2^31: (sample0 +
+    n_q) * s must be, or ValueError.
     Returns (p, a) int64, sorted by (p, a), without duplicates.
 
     Replaces catch_tpu/ops/scan_instance.py _lookup_jit (:217-272),
     _expand_hits_jit (:293-338) and _dedup_pairs_jit (:341-360); the
     kernels are csrc/lookup_expand.cu: a probe-major merge join over
-    the sorted samples (torch.sort of the n_q samples) that never
-    stores a raw hit.
+    the sorted samples (torch.sort of the n_q samples) that reads the
+    table as it is and never stores a raw hit.
     """
-    for t, name in ((tbl_h, "tbl_h"), (tbl_p, "tbl_p"),
-                    (tbl_pos, "tbl_pos"), (q, "q")):
-        _require(t, torch.int64, name)
+    _require(ent, torch.int64, "ent")
+    _require(cnt, torch.int32, "cnt")
+    _require(q, torch.int64, "q")
+    if ent.dim() != 2 or cnt.shape != ent.shape[:1]:
+        raise ValueError("ent must be [P, W] and cnt [P]")
     if (sample0 + q.numel()) * s >= _PAIR_KEY_LIMIT:
         raise ValueError(f"samples up to {sample0 + q.numel()} at stride {s} "
                          "exceed the 31-bit alignment field")
-    if _on_cpu(tbl_h, tbl_p, tbl_pos, q):
-        return _lookup_expand_plain(tbl_h, tbl_p, tbl_pos, q, s, sample0)
-    return _lookup_expand_cuda(tbl_h, tbl_p, tbl_pos, q, s, sample0)
+    if _on_cpu(ent, cnt, q):
+        return _lookup_expand_plain(ent, cnt, q, s, sample0)
+    return _lookup_expand_cuda(ent, cnt, q, s, sample0)
 
 
 lookup_expand.launches = 0
@@ -245,60 +304,54 @@ def _no_marks(name):
     pass
 
 
-def _max_pair(lib, x, y, key, stream):
-    """(max x, max y) over the rows whose key is not HMAX (all rows for
-    key None), as int64 views of the unsigned maxima: negative when any
-    value is negative.  One host read (csrc/dedup_pairs.cu)."""
+def _max_pair(lib, x, y, stream):
+    """(max x, max y), as int64 views of the unsigned maxima: negative
+    when any value is negative.  One host read (csrc/dedup_pairs.cu)."""
     out = torch.zeros(2, dtype=torch.int64, device=x.device)
-    _build.check(lib.ct_max_pair(
-        _build.ptr(x), _build.ptr(y), None if key is None else _build.ptr(key),
-        x.numel(), _build.ptr(out), stream), "max_pair")
+    _build.check(lib.ct_max_pair(_build.ptr(x), _build.ptr(y), x.numel(),
+                                 _build.ptr(out), stream), "max_pair")
     return out.tolist()
 
 
-def _lookup_expand_cuda(tbl_h, tbl_p, tbl_pos, q, s, sample0, steps=None):
+def _lookup_expand_cuda(ent, cnt, q, s, sample0, steps=None):
     """lookup_expand on the card.  `steps`, when given, has a
     mark(name) method called after each step (tools/k2_split.py times
     the steps with CUDA events)."""
     mark = steps.mark if steps is not None else _no_marks
     dev = q.device
-    n_q, n_tbl = q.numel(), tbl_h.numel()
+    n_probes, width = ent.shape
+    n_q = q.numel()
     empty = torch.empty(0, dtype=torch.int64, device=dev)
-    if n_q == 0 or n_tbl == 0:
+    if n_q == 0 or n_probes == 0 or width == 0:
         return empty, empty.clone()
+    if n_probes >= _PAIR_KEY_LIMIT or width >= _PAIR_KEY_LIMIT:
+        raise ValueError("table probe ids and offsets must lie in [0, 2^31)")
     mark("start")
     lib = _build.library()
     stream = _build.stream_of(q)
-    # The largest probe id and offset of the rows that can match (a
-    # sentinel row never does, and no other field of it is read).
-    max_p, max_pos = _max_pair(lib, tbl_p, tbl_pos, tbl_h, stream)
-    if not (0 <= max_p < _PAIR_KEY_LIMIT and 0 <= max_pos < _PAIR_KEY_LIMIT):
-        raise ValueError("table probe ids and offsets must lie in "
-                         "[0, 2^31)")
-    n_probes = max_p + 1
-    # Offsets a lane holds in registers: enough for a probe of
-    # max_pos + 1 offsets up to 8 (a longer probe merges in scratch).
-    lane_slots = next(j for j in (2, 4, 8) if 32 * j > max_pos or j == 8)
-    mark("table bounds read")
+    # Offsets a lane holds in registers: enough for a probe of width
+    # offsets up to 8 (a longer probe merges in scratch).
+    lane_slots = next(j for j in (2, 4, 8) if 32 * j >= width or j == 8)
     # Sample side: hashes and ids, sorted by hash.
     qs, qi = torch.sort(q, stable=True)
     mark("sample sort")
-    # Probe side, counting pass and offsets (csrc/lookup_expand.cu); the
-    # int64 workspace ends with the pairs' inclusive offsets and the
+    # The counting pass over the table as it is (csrc/lookup_expand.cu);
+    # the int64 workspace ends with the pairs' inclusive offsets and the
     # kernel's probe counter.
-    ws32 = torch.empty(2 * n_q + 5 * n_tbl, dtype=torch.int32, device=dev)
-    ws64 = torch.empty(4 * n_probes + 1, dtype=torch.int64, device=dev)
+    ws32 = torch.empty(2 * n_q + 3 * n_probes * width, dtype=torch.int32,
+                       device=dev)
+    ws64 = torch.empty(2 * n_probes + 1, dtype=torch.int64, device=dev)
 
     def run(p, a, emit):
         _build.check(lib.ct_le_merge(
-            _build.ptr(qs), _build.ptr(qi), n_q, _build.ptr(tbl_h),
-            _build.ptr(tbl_p), _build.ptr(tbl_pos), n_tbl, sample0 * s, s,
-            n_probes, lane_slots, _build.ptr(ws32), _build.ptr(ws64), p, a,
-            emit, stream), "le_merge")
+            _build.ptr(qs), _build.ptr(qi), n_q, _build.ptr(ent),
+            _build.ptr(cnt), n_probes, width, sample0 * s, s, lane_slots,
+            _build.ptr(ws32), _build.ptr(ws64), p, a, emit, stream),
+            "le_merge")
 
     run(None, None, 0)
-    mark("probe side and counting pass")
-    total = int(ws64[4 * n_probes - 1])
+    mark("counting pass")
+    total = int(ws64[2 * n_probes - 1])
     mark("read")
     p = torch.empty(total, dtype=torch.int64, device=dev)
     a = torch.empty(total, dtype=torch.int64, device=dev)
@@ -353,7 +406,7 @@ def _dedup_pairs_cuda(p, a, tile, steps=None):
     mark("start")
     lib = _build.library()
     stream = _build.stream_of(p)
-    max_p, max_a = _max_pair(lib, p, a, None, stream)
+    max_p, max_a = _max_pair(lib, p, a, stream)
     if not (0 <= max_p < _PAIR_KEY_LIMIT and 0 <= max_a < _PAIR_KEY_LIMIT):
         raise ValueError("pairs must lie in [0, 2^31)")
     n_b = max_p + 1
@@ -384,28 +437,19 @@ def _dedup_pairs_plain(p, a):
     return keys >> 32, keys & _MASK32
 
 
-def lookup_ranges_plain(tbl_h, q):
-    """(lo, cnt) of each sample's run of equal hashes in the sorted
-    table; cnt is 0 for a sentinel sample."""
-    lo = torch.searchsorted(tbl_h, q, side="left")
-    hi = torch.searchsorted(tbl_h, q, side="right")
-    return lo, torch.where(q == HMAX, torch.zeros_like(lo), hi - lo)
-
-
-def _lookup_expand_plain(tbl_h, tbl_p, tbl_pos, q, s, sample0=0):
+def _lookup_expand_plain(ent, cnt, q, s, sample0=0):
     """Plain-PyTorch twin of lookup_expand, on the kernel's plan: the
-    samples sorted, each valid table row's run of equal sample hashes
-    found by searchsorted, the runs expanded and deduplicated."""
+    samples sorted, each table entry's run of equal sample hashes found
+    by searchsorted, the runs expanded and deduplicated."""
     qs, qi = torch.sort(q, stable=True)
-    ok = tbl_h != HMAX
-    h, p, pos = tbl_h[ok], tbl_p[ok], tbl_pos[ok]
+    h, p, pos = table_entries(ent, cnt)
     lo = torch.searchsorted(qs, h, side="left")
-    cnt = torch.searchsorted(qs, h, side="right") - lo
+    n = torch.searchsorted(qs, h, side="right") - lo
     row = torch.repeat_interleave(
-        torch.arange(h.numel(), dtype=torch.int64, device=q.device), cnt)
+        torch.arange(h.numel(), dtype=torch.int64, device=q.device), n)
     j = lo[row] + torch.arange(row.numel(), dtype=torch.int64,
-                               device=q.device) - (torch.cumsum(cnt, 0)
-                                                   - cnt)[row]
+                               device=q.device) - (torch.cumsum(n, 0)
+                                                   - n)[row]
     keys = torch.unique((p[row] << 32) | ((sample0 + qi[j]) * s - pos[row]))
     return keys >> 32, keys & _MASK32
 
@@ -1014,6 +1058,7 @@ def _assemble_plain(key, start, end, offsets, n_sets):
 
 
 KERNELS = {
+    "build_table": build_table,
     "rolling_hash": rolling_hash,
     "lookup_expand": lookup_expand,
     "dedup_pairs": dedup_pairs,
@@ -1071,11 +1116,11 @@ def scan_to_boundary_instance(searcher, sequences, seq_univ, chrom_off,
     The kernels' keys and positions are 31-bit, so the scan runs in
     blocks (module docstring): probe blocks of at most
     (_BLOCK_PAIR_KEYS - 1) // n_universes rows and corpus blocks of whole
-    sequences, each shorter than _BLOCK_POSITIONS with its pads.  One
-    block of each kind is the whole scan wherever it fits.  Raises
-    ValueError where n_universes alone reaches _BLOCK_PAIR_KEYS or one
-    sequence does not fit a corpus block.  searcher.stats["blocks"]
-    holds (probe blocks, corpus blocks).
+    sequences or pieces of one, each shorter than _BLOCK_POSITIONS with
+    its pads.  One block of each kind is the whole scan wherever it
+    fits.  Raises ValueError where n_universes alone reaches
+    _BLOCK_PAIR_KEYS.  searcher.stats["blocks"] holds (probe blocks,
+    corpus blocks).
     """
     model = searcher.model
     if model.custom_fn is not None or searcher.K_static is None:
@@ -1099,11 +1144,12 @@ def scan_to_boundary_instance(searcher, sequences, seq_univ, chrom_off,
     # Every place holds the probe rows and every corpus block (the lead
     # the originals, the others replicas), kept across probe blocks.
     corpus = []
-    for i0, i1, base in plan_corpus_blocks(searcher, seq_lens, starts,
-                                           seq_univ):
-        st, total = corpus_block(searcher, sequences, seq_univ, chrom_off,
-                                 seq_lens, starts, i0, i1, base, device)
-        corpus.append((_replicate(st, places), total))
+    for block in plan_corpus_blocks(searcher, seq_lens, starts,
+                                    int(cover_extension)):
+        st, total, keep = corpus_block(searcher, sequences, seq_univ,
+                                       chrom_off, seq_lens, starts, block,
+                                       int(cover_extension), device)
+        corpus.append((_replicate(st, places), total, keep))
     probes = _replicate(probes, places)
     # Largest universe-local coordinate a span can carry (spans are
     # clamped to chrom_off + seq_len): sizes the packed start field.
@@ -1197,17 +1243,19 @@ def _tail_pad(searcher):
     return searcher.Lmax + s + kj
 
 
-def plan_corpus_blocks(searcher, seq_lens, starts, seq_univ):
-    """The corpus blocks: (i0, i1, base) for each, sequences i0..i1 - 1
-    in the window of the whole layout (corpus_layout) that starts at
+def plan_corpus_blocks(searcher, seq_lens, starts, ext):
+    """The corpus blocks: (i0, i1, base, core) for each, sequences i0..i1 -
+    1 in the window of the whole layout (corpus_layout) that starts at
     base.
 
     base is a multiple of the stride s at or below starts[i0] - (L +
     kj), so each sequence keeps its position mod s (the same samples)
     and its block keeps the leading pad; a block's length, tail pad
     included, stays below _BLOCK_POSITIONS.  One block holds the whole
-    corpus wherever it fits.  Raises ValueError for a sequence that fits
-    no block."""
+    corpus wherever it fits, and core is None for a block of whole
+    sequences.  A sequence that no block holds alone is cut into pieces
+    (_pieces), a block each, with i1 = i0 + 1 and core its range of the
+    sequence's alignments.  ext is the cover extension."""
     L = searcher.Lmax
     kj, s = join_params_stride(searcher)
     tail = _tail_pad(searcher)
@@ -1218,26 +1266,69 @@ def plan_corpus_blocks(searcher, seq_lens, starts, seq_univ):
         base = 0 if i0 == 0 else (int(starts[i0]) - L - kj) // s * s
         i1 = i0 + int(np.searchsorted(ends[i0:], base + _BLOCK_POSITIONS))
         if i1 == i0 < n:
-            raise ValueError(
-                f"sequence {i0} (genome {int(seq_univ[i0])}, "
-                f"{int(seq_lens[i0])} bp) does not fit a corpus block of "
-                f"{_BLOCK_POSITIONS} positions: the scan's positions are "
-                "31-bit")
-        blocks.append((i0, i1, base))
+            blocks += _pieces(searcher, i0, int(starts[i0]),
+                              int(seq_lens[i0]), ext)
+            i1 = i0 + 1
+        else:
+            blocks.append((i0, i1, base, None))
         i0 = i1
         if i0 >= n:
             return blocks
 
 
-def corpus_block(searcher, sequences, seq_univ, chrom_off, seq_lens, starts,
-                 i0, i1, base, device):
-    """Sequences i0..i1 - 1 as one corpus block on `device`, the window
-    of the whole layout from `base` (plan_corpus_blocks).
+def _pieces(searcher, i, start, n, ext):
+    """The blocks of sequence i (at `start` in the whole layout, n bp),
+    cut into pieces: the sequence's alignments [start - L, start + n)
+    (a pair's alignment names its sequence: verify_windows finds it in
+    seq_ends) in cores of at most _BLOCK_POSITIONS less piece_room, the
+    last core the rest.  A piece's block holds its core's codes with L
+    codes of flank on each side (the sequence's, where it has them);
+    before the left flank the leading pad L + kj and ext more, so that
+    corpus_block's clipped start, L + ext before the core, stays at or
+    above L + kj; after the right flank the L pad and the tail pad.  Its
+    base is a multiple of s, so the samples are the whole layout's and
+    every pair of the core is found there as in the whole layout."""
+    L = searcher.Lmax
+    kj, s = join_params_stride(searcher)
+    core = _BLOCK_POSITIONS - piece_room(searcher, ext)
+    if core < 1:
+        raise ValueError(f"a corpus block of {_BLOCK_POSITIONS} positions "
+                         f"leaves no room for a piece of sequence {i}")
+    return [(i, i + 1, (lo - 2 * L - kj - ext) // s * s,
+             (lo, min(lo + core, start + n)))
+            for lo in range(start - L, start + n, core)]
 
-    Returns (state, total): state holds the codes `mega` and the
+
+def piece_room(searcher, ext):
+    """Positions a piece's block holds besides its core (_pieces), the
+    rounding of its base to the stride included."""
+    kj, s = join_params_stride(searcher)
+    return 4 * searcher.Lmax + kj + ext + s + _tail_pad(searcher)
+
+
+def corpus_block(searcher, sequences, seq_univ, chrom_off, seq_lens, starts,
+                 block, ext, device):
+    """One corpus block (plan_corpus_blocks' (i0, i1, base, core)) on
+    `device`: sequences i0..i1 - 1, or a piece of sequence i0, in the
+    window of the whole layout from `base`.
+
+    Returns (state, total, keep): state holds the codes `mega` and the
     per-sequence int64 tables (starts and ends in the block, lengths,
     chromosome offsets, universes); total is the block's length without
-    its tail pad."""
+    its tail pad; keep is None, or for a piece the block's range of
+    alignments whose pairs it keeps (its core).
+
+    A piece's table holds its sequence's real bounds, clipped to L +
+    ext before the core and L after it, so that they fit the kernels'
+    31-bit positions; the clip moves the start by d, and the length and
+    chromosome offset take d back.  For an alignment of the core, the
+    clipped bounds give verify_windows the real sequence's threshold,
+    overlap, extension clamp and offsets: where a bound is clipped, the
+    real one lies beyond every window and extension of the core."""
+    i0, i1, base, core = block
+    if core is not None:
+        return _piece_block(searcher, sequences, seq_univ, chrom_off,
+                            seq_lens, starts, i0, base, core, ext, device)
     L = searcher.Lmax
     kj, _ = join_params_stride(searcher)
     local = np.asarray(starts[i0:i1], dtype=np.int64) - base
@@ -1247,13 +1338,39 @@ def corpus_block(searcher, sequences, seq_univ, chrom_off, seq_lens, starts,
     for j, x in enumerate(sequences[i0:i1]):
         mega[local[j]:local[j] + lens[j]] = searcher.alphabet.encode(
             encode.encode_bytes(x))
-    state = dict(
-        mega=_put(mega, device), seq_starts=_put(local, device),
-        seq_ends=_put(local + lens, device), seq_lens=_put(lens, device),
-        chrom_off=_put(np.asarray(chrom_off, dtype=np.int64)[i0:i1], device),
-        univ_of_seq=_put(np.asarray(seq_univ, dtype=np.int64)[i0:i1],
-                         device))
-    return state, total
+    return _block_state(mega, local, local + lens, lens,
+                        np.asarray(chrom_off, dtype=np.int64)[i0:i1],
+                        np.asarray(seq_univ, dtype=np.int64)[i0:i1],
+                        device), total, None
+
+
+def _piece_block(searcher, sequences, seq_univ, chrom_off, seq_lens, starts,
+                 i, base, core, ext, device):
+    """corpus_block for the piece of sequence i with alignments core =
+    (lo, hi) of the whole layout."""
+    L = searcher.Lmax
+    lo, hi = core
+    start, n = int(starts[i]), int(seq_lens[i])
+    c0, c1 = max(start, lo - L), min(start + n, hi + L)
+    total = c1 - base + L
+    mega = np.zeros(total + _tail_pad(searcher), dtype=np.uint8)
+    mega[c0 - base:c1 - base] = searcher.alphabet.encode(
+        encode.encode_bytes(sequences[i][c0 - start:c1 - start]))
+    s_lo = max(start, lo - L - ext)
+    d = s_lo - start
+    table = np.array([[s_lo - base], [c1 - base], [n - d],
+                      [int(chrom_off[i]) + d], [int(seq_univ[i])]],
+                     dtype=np.int64)
+    return _block_state(mega, *table, device), total, (lo - base, hi - base)
+
+
+def _block_state(mega, seq_starts, seq_ends, seq_lens, chrom_off,
+                 univ_of_seq, device):
+    return dict(mega=_put(mega, device), seq_starts=_put(seq_starts, device),
+                seq_ends=_put(seq_ends, device),
+                seq_lens=_put(seq_lens, device),
+                chrom_off=_put(chrom_off, device),
+                univ_of_seq=_put(univ_of_seq, device))
 
 
 def prepare_corpus(searcher, sequences, seq_univ, chrom_off, pid_of,
@@ -1269,8 +1386,9 @@ def prepare_corpus(searcher, sequences, seq_univ, chrom_off, pid_of,
     probes, perm = prepare_probes(searcher, pid_of, device)
     seq_lens = np.asarray([len(x) for x in sequences], dtype=np.int64)
     starts = corpus_layout(searcher, seq_lens)
-    st, total = corpus_block(searcher, sequences, seq_univ, chrom_off,
-                             seq_lens, starts, 0, len(seq_lens), 0, device)
+    st, total, _ = corpus_block(searcher, sequences, seq_univ, chrom_off,
+                                seq_lens, starts, (0, len(seq_lens), 0, None),
+                                0, device)
     return dict(st, **probes), total, perm
 
 
@@ -1324,8 +1442,8 @@ def _run_pipeline(searcher, places, probes, corpus, rows_per_block, kj, s,
                             for p in places[1:]]
         _mark(searcher, device, "table_and_hash", t0)
         spans = [_scan_corpus_block(searcher, places, rows, tables, states,
-                                    total, kj, s, vargs)
-                 for states, total in corpus]
+                                    total, keep, kj, s, vargs)
+                 for states, total, keep in corpus]
         del table, tables
         key, us, ue = join_on(device, spans)
         del spans
@@ -1356,15 +1474,18 @@ def _run_pipeline(searcher, places, probes, corpus, rows_per_block, kj, s,
                 u_size_host=u_size, can_uncover_host=can_uncover)
 
 
-def _scan_corpus_block(searcher, places, rows, tables, states, total, kj, s,
-                       vargs):
+def _scan_corpus_block(searcher, places, rows, tables, states, total, keep,
+                       kj, s, vargs):
     """Stages A to C of one probe block against one corpus block, place d
     reading rows[d], tables[d] and states[d]: each place hashes and
     looks up a contiguous range of the block's samples (stages A, B);
     the pairs are joined on the lead, deduplicated once more over all
     ranges (samples of two ranges can find one pair) and cut into
     contiguous parts; each place verifies its part (stage C).  Returns
-    the spans (key, start, end) on the lead, in part order."""
+    the spans (key, start, end) on the lead, in part order.  keep, for a
+    piece of a long sequence (corpus_block), is the range of alignments
+    whose pairs the piece keeps: each pair is found, counted and
+    verified in one piece."""
     device, n = places[0], len(places)
     t0 = time.time()
     ranges = split_range(-(-total // s), n)
@@ -1380,6 +1501,9 @@ def _scan_corpus_block(searcher, places, rows, tables, states, total, kj, s,
     pc, ac = join_on(device, pairs)
     if n > 1:
         pc, ac = dedup_pairs(pc, ac)
+    if keep is not None:
+        core = (ac >= keep[0]) & (ac < keep[1])
+        pc, ac = pc[core], ac[core]
     del qs, pairs
     searcher.stats["candidates"] += int(pc.numel())
     t0 = _mark(searcher, device, "join_expand", t0)

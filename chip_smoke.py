@@ -8,11 +8,12 @@ Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch, CUDA, nvcc and
      triton versions;
   2. the build of the CUDA kernels from catch_tpu_torch/csrc/;
-  3. the five design-scan kernels (pack_merged, the readback, among them)
-     against their plain-PyTorch twins on the card, on the inputs the
-     ebola175 design gives them: outputs
-     must be exactly equal; the median, min and max times of both from
-     CUDA events; the raw hit count beside the pairs, lookup_expand's
+  3. the six design-scan kernels (build_table, stage T's seed table, and
+     pack_merged, the readback, among them) against their plain-PyTorch
+     twins on the card, on the inputs the ebola175 design gives them:
+     outputs must be exactly equal; the median, min and max times of
+     both from CUDA events; stage T's peak device memory; the raw hit
+     count beside the pairs, lookup_expand's
      time split step by step, verify_windows' (the mask kernel, the
      cumsum and its read, the emit kernel) with stage C's peak device
      memory above its inputs, segmented_merge's for both calls of stage
@@ -24,7 +25,7 @@ Phases (any failure exits non-zero and prints no result line):
      tests/data/zaire_ebolavirus.fasta.gz, through the same CLI on cuda,
      with every kernel's launch count set to 0 just before; the output
      must equal tests/data/golden/torch_ebola175_m2.fasta byte for byte,
-     and the five design kernels must have launched;
+     and the six design kernels must have launched;
   6. the two span-scan kernels, expand_join and verify_spans, against
      their twins on the inputs the first batch (75 Mbp, both strands) of
      phase 8's avoid scan gives them: exactly equal; CUDA-event medians;
@@ -46,7 +47,7 @@ Phases (any failure exits non-zero and prints no result line):
      27,176,000 bp; greedy clustering), counting launches: the probe
      FASTA must equal tests/data/golden/flu2000_design_large.fasta byte
      for byte, and minhash_assign, minhash_caps, minhash_sig and the
-     five design-scan kernels must have launched;
+     six design-scan kernels must have launched;
  11. the same on the 10,000-genome corpus of bench.py:107-127 (80,000
      sequences, 135,880,000 bp): the clusters must equal
      flu10k_clusters.tsv.gz and the FASTA flu10k_design_large.fasta; the
@@ -89,8 +90,8 @@ Phases (any failure exits non-zero and prints no result line):
      must equal torch_ebola175_m2.fasta byte for byte, the candidates
      evaluated and the picks must equal phase 5's, rolling_hash,
      lookup_expand and verify_windows must have launched for every place
-     (the counts by place must add up to the totals) and dedup_pairs on
-     the lead;
+     (the counts by place must add up to the totals), and build_table
+     (one table for every place) and dedup_pairs on the lead;
  18. the span scan on the mesh: phase 7's identify and avoid goldens
      with --num-devices 4, then phase 8's 100 Mbp avoid ranks through a
      SetCoverFilter(mesh=make_mesh(4)): equal to avoid100m_ranks.tsv,
@@ -116,10 +117,10 @@ Phases (any failure exits non-zero and prints no result line):
      position-axis limit (set_cover._DEVICE_AXIS_LIMIT) patched below the
      axis, which takes the host route: each FASTA must equal
      torch_ebola175_m2.fasta byte for byte, the candidates and picks
-     phase 5's; rolling_hash, lookup_expand and verify_windows must have
-     launched once per block pair (rolling_hash also once per probe
-     block, for its table), pack_merged only on the host routes and
-     assemble only on the device route;
+     phase 5's; build_table must have launched once per probe block,
+     rolling_hash, lookup_expand and verify_windows once per block pair,
+     pack_merged only on the host routes and assemble only on the
+     device route;
  22. the splits at real size, scan only, at the unpatched limits:
      ebola175's candidates against ebola175 and 8 random genomes of
      272,000,000 bp (default_rng(11); past 2^31 positions, corpus
@@ -127,7 +128,13 @@ Phases (any failure exits non-zero and prints no result line):
      default_rng(12) offsets (P x nU past 2^31, probe blocks): the rows
      of the first 175 universes, re-keyed, must equal a scan of those
      universes alone; wall seconds, blocks, pairs and peak device
-     memory.
+     memory;
+ 23. one random chromosome of 2,200,000,000 bp (default_rng(13)), past
+     2^31 positions, so scanned in pieces, with an ebola175 genome
+     planted across each piece edge, scan only, ebola175's candidates:
+     near each edge the merged rows must equal a scan of the window
+     edge +- 1,000,000 alone, and some must cross the edge; wall
+     seconds, pieces, pairs and peak device memory.
 
 Each phase prints its wall seconds as it ends.  The line before the
 last is the card's name and power limit; the one before it a JSON
@@ -153,7 +160,8 @@ FIXTURE = os.path.join(ROOT, "tests", "data", "zaire_ebolavirus.fasta.gz")
 GOLDEN = os.path.join(ROOT, "tests", "data", "golden")
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 REPLACES = {
-    "rolling_hash": "catch_tpu/ops/scan_instance.py:129",
+    "build_table": "catch_tpu/ops/scan_instance.py:129",
+    "rolling_hash": "catch_tpu/ops/scan_instance.py:174",
     "lookup_expand": "catch_tpu/ops/scan_instance.py:217",
     "dedup_pairs": "catch_tpu/ops/scan_instance.py:341",
     "verify_windows": "catch_tpu/ops/scan_instance.py:382",
@@ -174,12 +182,13 @@ REPLACES = {
     "greedy_sharded": "catch_tpu/parallel/set_cover.py:114",
 }
 SOURCES = {name: f"catch_tpu_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["build_table"] = "catch_tpu_torch/csrc/rolling_hash.cu"
 for _name in ("verify_spans", "verify_spans_sharded"):
     SOURCES[_name] = "catch_tpu_torch/csrc/verify_windows.cu"
 for _name in ("minhash_dists", "minhash_codes", "minhash_assign"):
     SOURCES[_name] = "catch_tpu_torch/csrc/minhash_caps.cu"
-DESIGN_KERNELS = ["rolling_hash", "lookup_expand", "verify_windows",
-                  "segmented_merge", "pack_merged"]
+DESIGN_KERNELS = ["build_table", "rolling_hash", "lookup_expand",
+                  "verify_windows", "segmented_merge", "pack_merged"]
 SOLVER_KERNELS = ["assemble", "init_covered", "greedy_v2"]
 PLACE_KERNELS = ["rolling_hash", "lookup_expand", "verify_windows"]
 MESH_PLACES = 4
@@ -455,23 +464,31 @@ def check_kernels(torch, device):
     x = kernel_inputs(torch, device)
     st, kj, s, K, nU = x["st"], x["kj"], x["s"], x["K"], x["nU"]
     P, L = st["codes"].shape
-    row = L + kj
-    flat = torch.zeros(P * row + kj - 1, dtype=torch.uint8, device=device)
-    flat[:P * row].view(P, row)[:, :L] = st["codes"]
+    W = max(L - kj + 1, 0)
     n_samples = -(-x["total"] // s)
     print(f"ebola175 shapes: {x['n_probes']} candidate probes, {P} unique, "
           f"L={L}, corpus {x['corpus_bp']} bp in {x['total']} positions, "
           f"{n_samples} samples, kj={kj}, s={s}, K={K}", flush=True)
 
-    def k1(hash_fn):
-        return (hash_fn(flat, P * row, 1, kj, P * row - 1),
-                hash_fn(st["mega"], n_samples, s, kj, x["total"] - kj))
+    def k1t(fn):
+        return fn(st["codes"], kj)
 
-    tbl_h, tbl_p, tbl_pos = si.build_table(st["codes"], kj)
-    q = k1(si.rolling_hash)[1]
+    def k1(hash_fn):
+        return hash_fn(st["mega"], n_samples, s, kj, x["total"] - kj)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    table = k1t(si.build_table)
+    torch.cuda.synchronize()
+    n_ent = int(table[1].sum())
+    print(f"build_table: {P} x {W} slots, {n_ent} entries; stage T's peak "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB "
+          "above its inputs", flush=True)
+    q = k1(si.rolling_hash)
 
     def k2(fn):
-        return fn(tbl_h, tbl_p, tbl_pos, q, s)
+        return fn(*table, q, s)
 
     pc, ac = k2(si.lookup_expand)
     vargs = dict(K=K, k_seed=x["k_seed"], lcf=int(x["searcher"].lcf_static),
@@ -489,7 +506,7 @@ def check_kernels(torch, device):
         mk, ms, me = fn(key, us, ue)
         return (mk, ms, me) + tuple(fn(mk % nU, ms, me))
 
-    qs, h = torch.sort(q).values, tbl_h[tbl_h != si.HMAX]
+    qs, h = torch.sort(q).values, si.table_entries(*table)[0]
     n_raw = int((torch.searchsorted(qs, h, right=True)
                  - torch.searchsorted(qs, h)).sum())
     del qs, h
@@ -497,8 +514,7 @@ def check_kernels(torch, device):
           f"hits, {int(pc.numel())} candidate pairs, {int(key.numel())} "
           "spans", flush=True)
     print("lookup_expand steps (ms, CUDA-event medians): " + step_split(
-        torch, lambda st: si._lookup_expand_cuda(tbl_h, tbl_p, tbl_pos, q,
-                                                 s, 0, steps=st)),
+        torch, lambda st: si._lookup_expand_cuda(*table, q, s, 0, steps=st)),
           flush=True)
     print("verify_windows steps (ms, CUDA-event medians): " + step_split(
         torch, lambda st: si._verify_windows_cuda(*vt, steps=st, **vargs)),
@@ -530,21 +546,24 @@ def check_kernels(torch, device):
           f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB "
           "above its inputs", flush=True)
     # Bytes (each input read once, each output written once) and
-    # operations each function needs on these inputs: K1 two multiply-
-    # adds per code of each window; K2 a binary search per sample and a
-    # store per pair; K3 a compare per aligned probe position; K4 a
-    # pass over each merge's input.
-    n_hash = P * row + n_samples
-    n_tbl, n_q, n_pairs = tbl_h.numel(), q.numel(), pc.numel()
+    # operations each function needs on these inputs: K1 two operations
+    # (a multiply-add) per code of each window, the table's row of W
+    # slots of 8 bytes and a 4-byte count a probe; K2 the table, the
+    # samples and 16 bytes a pair out, a binary search per entry among
+    # the samples and a step per pair; K3 a compare per aligned probe
+    # position; K4 a pass over each merge's input.
+    n_q, n_pairs = q.numel(), pc.numel()
     merged = k4(si.segmented_merge)
     n_in, n_mid, n_out = key.numel(), merged[0].numel(), merged[3].numel()
     b_pos = si.pack_width(int((st["chrom_off"] + st["seq_lens"]).max()))
     return compare(torch, [
+        ("build_table", k1t, si._build_table_plain, si.build_table, 20,
+         (P * L + 8 * P * W + 4 * P, 2 * kj * P * W)),
         ("rolling_hash", k1, si._rolling_hash_plain, si.rolling_hash, 20,
-         (flat.numel() + x["total"] + 8 * n_hash, 2 * kj * n_hash)),
+         (x["total"] + 8 * n_samples, 2 * kj * n_samples)),
         ("lookup_expand", k2, si._lookup_expand_plain, si.lookup_expand, 10,
-         (8 * (3 * n_tbl + n_q) + 16 * n_pairs,
-          n_q * max(1, (n_tbl - 1).bit_length()) + n_pairs)),
+         (8 * P * W + 4 * P + 8 * n_q + 16 * n_pairs,
+          n_ent * max(1, (n_q - 1).bit_length()) + n_pairs)),
         ("verify_windows", k3, si._verify_windows_plain, si.verify_windows,
          5, (x["total"] + st["codes"].numel() + 16 * n_pairs
              + 24 * key.numel(), n_pairs * L)),
@@ -1283,10 +1302,12 @@ def mesh_design(torch, si, profiling, in175, stats5):
                              PLACE_KERNELS, f"place {d} of {what}")
         for k in PLACE_KERNELS:
             by = sum(v[k] for v in by_place.values())
-            lead_only = 1 if k == "rolling_hash" else 0  # the probe table
-            if launches[k] != by + lead_only:
+            if launches[k] != by:
                 fail(f"{what}: {launches[k]} launches of {k}, but the "
-                     f"places count {by} and the lead {lead_only}")
+                     f"places count {by}")
+        if launches["build_table"] != 1:
+            fail(f"{what}: {launches['build_table']} launches of "
+                 "build_table, not one table for every place")
     inst, = kept
     return inst, launches
 
@@ -1530,10 +1551,9 @@ def blocked_design(torch, si, profiling, in175, stats5):
     solver's route, the device solver's, and the device solver's with
     the position-axis limit patched below the axis (so the host route
     takes over).  Every FASTA must equal torch_ebola175_m2.fasta, the
-    candidates and picks phase 5's; rolling_hash (the table of each
-    probe block, then the samples of each block pair), lookup_expand and
-    verify_windows must have launched once per block pair, and
-    pack_merged only where the host solver ran."""
+    candidates and picks phase 5's; build_table once per probe block,
+    rolling_hash, lookup_expand and verify_windows once per block pair,
+    and pack_merged only where the host solver ran."""
     from catch_tpu_torch.ops import set_cover as sct
 
     blocks = []
@@ -1566,7 +1586,8 @@ def blocked_design(torch, si, profiling, in175, stats5):
         if n_p != 4 or n_c < 3:
             fail(f"{what}: {n_p} probe blocks and {n_c} corpus blocks")
         pairs = n_p * n_c
-        want = {"rolling_hash": n_p + pairs, "lookup_expand": pairs,
+        want = {"build_table": n_p, "rolling_hash": pairs,
+                "lookup_expand": pairs,
                 "verify_windows": pairs, "segmented_merge": 2 * n_p + 1,
                 "pack_merged": 0 if on_card else 1,
                 "assemble": 1 if on_card else 0}
@@ -1586,6 +1607,32 @@ BG_GENOMES, BG_BP = 8, 272_000_000   # phase 22 (i): 2,176,000,000 bp
 N_PIECES, PIECE_BP = 115_000, 1000   # phase 22 (ii)
 
 
+def scan_only(torch, si, profiling, device, searcher, pid, sequences,
+              seq_univ, chrom_off, n_universes, ext=50):
+    """Phases 22 and 23: scan_to_boundary_instance alone, at cover
+    extension ext, with the phases and the peak device memory counted
+    from 0.  Returns (dev, info): wall seconds, bp, blocks, candidate
+    pairs and peak bytes."""
+    import numpy as np
+
+    searcher.stats.clear()
+    searcher.stats["candidates"] = 0
+    lens = [len(x) for x in sequences]
+    profiling.reset_phases()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    dev, _ = si.scan_to_boundary_instance(
+        searcher, sequences, np.asarray(seq_univ), np.asarray(chrom_off),
+        np.asarray(lens), n_universes, ext, np.ones(n_universes), pid,
+        device)
+    torch.cuda.synchronize()
+    return dev, dict(wall=time.time() - t0, bp=sum(lens),
+                     blocks=searcher.stats["blocks"],
+                     pairs=searcher.stats["candidates"],
+                     peak=torch.cuda.max_memory_allocated())
+
+
 def blocked_scans(torch, si, profiling, device):
     """Phase 22: the splits at real size, at the unpatched limits, scan
     only (scan_to_boundary_instance): (i) ebola175's candidates against
@@ -1603,22 +1650,8 @@ def blocked_scans(torch, si, profiling, device):
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
 
     def scan(sequences, seq_univ, chrom_off, n_universes):
-        searcher.stats.clear()
-        searcher.stats["candidates"] = 0
-        lens = [len(x) for x in sequences]
-        profiling.reset_phases()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        dev, _ = si.scan_to_boundary_instance(
-            searcher, sequences, np.asarray(seq_univ), np.asarray(chrom_off),
-            np.asarray(lens), n_universes, 50, np.ones(n_universes), pid,
-            device)
-        torch.cuda.synchronize()
-        return dev, dict(wall=time.time() - t0, bp=sum(lens),
-                         blocks=searcher.stats["blocks"],
-                         pairs=searcher.stats["candidates"],
-                         peak=torch.cuda.max_memory_allocated())
+        return scan_only(torch, si, profiling, device, searcher, pid,
+                         sequences, seq_univ, chrom_off, n_universes)
 
     def check(what, dev, info, ref, n_universes):
         mk, ms, me = dev["merged"]
@@ -1674,6 +1707,82 @@ def blocked_scans(torch, si, profiling, device):
     check(f"phase 22 (ii), {N_PIECES} pieces of {PIECE_BP} bp", dev, info,
           ref, N_PIECES)
     del dev
+    torch.cuda.empty_cache()
+
+
+LONG_BP = 2_200_000_000   # phase 23: one chromosome past 2^31 positions
+EDGE_WINDOW = 1_000_000   # phase 23: the reference scans edge +- this
+EDGE_MARGIN = 10_000      # phase 23: rows compared keep this off its ends
+
+
+def long_chromosome(torch, si, profiling, device):
+    """Phase 23: one random chromosome of 2,200,000,000 bp
+    (default_rng(13)), past 2^31 positions, so cut into pieces; scan only
+    (scan_to_boundary_instance), ebola175's candidates, cover extension
+    50.  An ebola175 genome is planted across each piece edge, its
+    middle on the edge.  Near each edge, the merged rows must equal a
+    scan of the chromosome's window edge +- 1,000,000 alone (one block),
+    shifted by the window's start: every row that lies 10,000 bp or more
+    inside the window, in both."""
+    import numpy as np
+
+    searcher, pid, seqs, _, _, _ = ebola175_scan()
+    ext = 50
+    lens = np.array([LONG_BP])
+    layout = si.corpus_layout(searcher, lens)
+    plan = si.plan_corpus_blocks(searcher, lens, layout, ext)
+    if len(plan) < 2 or any(core is None for *_, core in plan):
+        fail(f"phase 23: {LONG_BP} bp gave the blocks {plan}, not pieces")
+    edges = [core[0] - int(layout[0]) for *_, core in plan[1:]]
+    t0 = time.time()
+    rng = np.random.default_rng(13)
+    chrom = np.frombuffer(b"ACGT", dtype=np.uint8)[
+        rng.integers(0, 4, size=LONG_BP, dtype=np.uint8)]
+    for j, e in enumerate(edges):
+        g = np.frombuffer(seqs[j].encode(), dtype=np.uint8)
+        chrom[e - len(g) // 2:e - len(g) // 2 + len(g)] = g
+    chrom = chrom.tobytes().decode()
+    print(f"long chromosome: {LONG_BP} bp, {len(plan)} pieces, edges at "
+          f"{edges} with ebola175 genomes {list(range(len(edges)))} "
+          f"planted across them ({time.time() - t0:.1f} s to make)",
+          flush=True)
+
+    def scan(sequence):
+        return scan_only(torch, si, profiling, device, searcher, pid,
+                         [sequence], [0], [0], 1, ext)
+
+    dev, info = scan(chrom)
+    if info["blocks"] != (1, len(plan)):
+        fail(f"phase 23: the scan ran in {info['blocks']} blocks, not "
+             f"(1, {len(plan)})")
+    print(f"phase 23, one chromosome of {LONG_BP} bp: {info['blocks'][1]} "
+          f"pieces, {info['pairs']} candidate pairs, {dev['n_merged']} "
+          f"merged rows; wall {info['wall']:.3f} s; peak allocated device "
+          f"memory {info['peak'] / 2**20:.1f} MiB", flush=True)
+    print_phases(profiling, ("scan",))
+    mk, ms, me = dev["merged"]
+    for e in edges:
+        lo, hi = e - EDGE_WINDOW, e + EDGE_WINDOW
+        ref, ref_info = scan(chrom[lo:hi])
+        if ref_info["blocks"] != (1, 1):
+            fail(f"phase 23: the window at {lo} took {ref_info['blocks']}")
+        rk, rs, re_ = ref["merged"]
+        rs, re_ = rs + lo, re_ + lo
+        inner = (ms >= lo + EDGE_MARGIN) & (me <= hi - EDGE_MARGIN)
+        ref_inner = (rs >= lo + EDGE_MARGIN) & (re_ <= hi - EDGE_MARGIN)
+        got = (mk[inner], ms[inner], me[inner])
+        want = (rk[ref_inner], rs[ref_inner], re_[ref_inner])
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"phase 23: the rows near the edge at {e} differ from the "
+                 "scan of its window alone")
+        across = int(((got[1] < e) & (got[2] > e)).sum())
+        if across == 0:
+            fail(f"phase 23: no merged row crosses the edge at {e}")
+        print(f"phase 23, edge at {e}: {int(inner.sum())} merged rows in "
+              f"[{lo + EDGE_MARGIN}, {hi - EDGE_MARGIN}), {across} of them "
+              f"across the edge, equal to the scan of [{lo}, {hi}) alone "
+              f"({ref_info['pairs']} candidate pairs)", flush=True)
+    del dev, mk, ms, me, chrom
     torch.cuda.empty_cache()
 
 
@@ -1903,6 +2012,10 @@ def main():
     # Phase 22: the splits at real size, scan only.
     blocked_scans(torch, si, profiling, device)
     clock.done(22)
+
+    # Phase 23: one chromosome longer than a corpus block, scan only.
+    long_chromosome(torch, si, profiling, device)
+    clock.done(23)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -96,6 +96,7 @@ def test_kernels_equal_twins(cuda, model_kw, ext, n_chrs, short, k_seed):
     _assert_equal([q], [si._rolling_hash_plain(st["mega"], n_samples, s,
                                                kj, total - kj)])
     tbl = si.build_table(st["codes"], kj)
+    _assert_equal(tbl, si._build_table_plain(st["codes"], kj))
 
     pc, ac = si.lookup_expand(*tbl, q, s)
     _assert_equal((pc, ac), si._lookup_expand_plain(*tbl, q, s))
@@ -245,10 +246,18 @@ def test_empty_inputs(cuda):
     assert all(x.numel() == 0 for x in si.segmented_merge(e, e, e))
     assert si.rolling_hash(torch.zeros(4, dtype=torch.uint8, device=cuda),
                            0, 1, 2, 0).numel() == 0
-    tbl = torch.tensor([5, 9, si.HMAX], dtype=torch.int64, device=cuda)
     q = torch.tensor([1, 2, si.HMAX], dtype=torch.int64, device=cuda)
-    p, a = si.lookup_expand(tbl, tbl, tbl, q, 3)
-    assert p.numel() == a.numel() == 0
+    for P, L in ((0, 100), (3, 8)):       # no probe; probes shorter than kj
+        si.reset_launches()
+        tbl = si.build_table(torch.ones((P, L), dtype=torch.uint8,
+                                        device=cuda), 12)
+        assert tuple(tbl[0].shape) == (P, 0 if L < 12 else L - 11)
+        assert si.build_table.launches == (1 if P else 0)
+        _assert_equal(tbl, si._build_table_plain(
+            torch.ones((P, L), dtype=torch.uint8, device=cuda), 12))
+        p, a = si.lookup_expand(*tbl, q, 3)
+        assert p.numel() == a.numel() == 0
+        assert si.lookup_expand.launches == 0
 
 
 CODE = {"A": 1, "C": 2, "G": 3, "T": 4}
@@ -278,7 +287,7 @@ def _k2_case(cuda, probes, corpus, kj, s, sample0=0):
     assert si.lookup_expand.launches == 1
     _assert_equal(got, si._lookup_expand_plain(*tbl, q, s, sample0))
     qs = torch.sort(q).values
-    h = tbl[0][tbl[0] != si.HMAX]
+    h = si.table_entries(*tbl)[0]
     raw = int((torch.searchsorted(qs, h, right=True)
                - torch.searchsorted(qs, h)).sum())
     return got, raw
@@ -348,6 +357,36 @@ def test_lookup_expand_long_probes(cuda, L):
     probes = [corpus[i:i + L] for i in range(0, 11_700, 97)]
     (p, a), raw = _k2_case(cuda, probes, corpus, 12, 9)
     assert raw > p.numel() > len(probes)
+
+
+@pytest.mark.parametrize("case", [
+    "pad_inside", "short_probe", "one_probe", "odd_L", "long_rows",
+    "many_probes"])
+def test_build_table_equals_twin(cuda, case):
+    """Stage T's kernel against its twin, exactly (the unused slots
+    included): probes with PAD inside, probes shorter than kj and of 40
+    codes, one probe, L = 83, rows of 300 codes (9 rounds of 32
+    windows), and 600,000 probes (more than the grid's warps, which
+    then take several probes each)."""
+    rng = np.random.default_rng(len(case))
+    P, L = {"one_probe": (1, 80), "odd_L": (12, 83), "long_rows": (50, 300),
+            "many_probes": (600_000, 40)}.get(case, (12, 80))
+    codes = rng.integers(1, 5, size=(P, L)).astype(np.uint8)
+    if case in ("pad_inside", "many_probes"):
+        codes[rng.random((P, L)) < 0.03] = 0
+    if case == "short_probe":
+        codes[3, 9:] = 0
+        codes[5, 40:] = 0
+    ct = torch.from_numpy(codes).to(cuda)
+    si.reset_launches()
+    got = si.build_table(ct, 12)
+    torch.cuda.synchronize()
+    assert si.build_table.launches == 1
+    want = si._build_table_plain(ct, 12)
+    _assert_equal(got, want)
+    assert int(want[1].sum()) > 0
+    if case == "short_probe":
+        assert int(got[1][3]) == 0 and int(got[1][5]) == 29
 
 
 @pytest.mark.parametrize("b_pos,n", [(2, 1), (2, 5000), (3, 70000),

@@ -165,18 +165,105 @@ def test_rolling_hash_matches_numpy_uint32():
     assert (want == si.HMAX).any() and (want < si.HMAX).any()
 
 
+def _jax_table(codes, kj):
+    """_build_table_jit's table of uint8[P, L] probe codes, laid out as
+    catch_tpu lays them out ([L codes][kj PAD])."""
+    P, L = codes.shape
+    row = L + kj
+    flat = np.zeros(P * row + kj - 1, dtype=np.uint8)
+    flat[:P * row].reshape(P, row)[:, :L] = codes
+    return sj._build_table_jit(jnp.asarray(flat), kj=kj, row=row,
+                               TBL=sj._next_pow2(P * row))
+
+
+def _assert_table_equals_jax(codes, kj):
+    """build_table's twin against _build_table_jit: the same (hash,
+    probe, offset) entries as sets, the table's valid rows; probe-major,
+    offsets ascending within a probe, 0 in the unused slots."""
+    ent, cnt = si.build_table(torch.from_numpy(codes), kj)
+    assert ent.dtype == torch.int64 and cnt.dtype == torch.int32
+    P, L = codes.shape
+    assert tuple(ent.shape) == (P, max(L - kj + 1, 0))
+    jh, jp, jpos = (np.asarray(x).astype(np.int64)
+                    for x in _jax_table(codes, kj))
+    jv = jh != si.HMAX
+    th, tp, tpos = (x.numpy() for x in si.table_entries(ent, cnt))
+    assert len(th) == int(jv.sum())
+    assert sorted(zip(jh[jv], jp[jv], jpos[jv])) == sorted(zip(th, tp, tpos))
+    key = tp * (L + 1) + tpos
+    assert np.all(key[1:] > key[:-1])
+    slot = np.arange(ent.shape[1])[None, :]
+    assert not ent.numpy()[slot >= cnt.numpy()[:, None]].any()
+    return ent, cnt
+
+
 def test_rolling_hash_table_matches_build_table_jit():
     sc = _corpus_scan()
-    jh, jp, jpos = (np.asarray(x).astype(np.int64) for x in sc.jax_table())
-    th, tp, tpos = (x.numpy() for x in si.build_table(sc.st["codes"], sc.kj))
-    jv, tv = jh != si.HMAX, th != si.HMAX
-    assert jv.sum() == tv.sum() > 0
-    assert sorted(zip(jh[jv], jp[jv], jpos[jv])) == \
-        sorted(zip(th[tv], tp[tv], tpos[tv]))
-    # stable: equal hashes keep flat-index order
-    flat_idx = tp * (sc.L + sc.kj) + tpos
-    same = th[1:] == th[:-1]
-    assert np.all(flat_idx[1:][same] > flat_idx[:-1][same])
+    ent, cnt = _assert_table_equals_jax(sc.codes, sc.kj)
+    assert int(cnt.sum()) > 0
+
+
+def _table_case(case, rng):
+    """(codes uint8[P, L], kj, s) for a stage-T edge case: PAD inside
+    probes, probes shorter than kj (and one of 40 codes), one probe, or
+    an L that is not a multiple of 4."""
+    P = 1 if case == "one_probe" else 12
+    L = 83 if case == "odd_L" else 80
+    codes = rng.integers(1, 5, size=(P, L)).astype(np.uint8)
+    if case == "pad_inside":
+        codes[rng.random((P, L)) < 0.03] = 0
+    if case == "short_probe":
+        codes[3, 9:] = 0
+        codes[5, 40:] = 0
+    return codes, 12, 9
+
+
+def _jax_pairs(jtable, mega, total, kj, s):
+    """catch_tpu's stage B pairs of all samples of the corpus `mega`
+    against a _build_table_jit table."""
+    jh, jp, jpos = jtable
+    Q = sj._next_pow2(-(-total // s))
+    n = max(len(mega), Q * s + kj)
+    n += -n % 4
+    mega = np.concatenate([mega, np.zeros(n - len(mega), np.uint8)])
+    jq = sj._hash_samples_jit(jnp.asarray(mega), jnp.int32(0),
+                              jnp.int32(total - kj), kj=kj, s=s, Q=Q)
+    lo, cnt, _, _, _ = sj._lookup_jit(jh, jq, full=True,
+                                      rounds=sj._LK_ROUNDS)
+    T = sj._next_pow2(max(1, int(np.asarray(cnt).sum())))
+    p, a, n = sj._stage_b_jit(lo, cnt, jnp.int32(0), jnp.int32(0),
+                              jnp.int32(Q), jp, jpos, T=T, Q=Q, CAP=T, s=s)
+    n = int(n)
+    return list(zip(np.asarray(p)[:n].tolist(), np.asarray(a)[:n].tolist()))
+
+
+@pytest.mark.parametrize("case", ["pad_inside", "short_probe", "one_probe",
+                                  "odd_L"])
+def test_build_table_and_pairs_match_jax_edge_cases(case):
+    """Stage T's twin against _build_table_jit, and lookup_expand's pairs
+    from its table against catch_tpu's lookup and stage B, on probes
+    with PAD inside, probes shorter than kj, one probe, and L = 83."""
+    rng = np.random.default_rng(["pad_inside", "short_probe", "one_probe",
+                                 "odd_L"].index(case))
+    codes, kj, s = _table_case(case, rng)
+    ent, cnt = _assert_table_equals_jax(codes, kj)
+    P, L = codes.shape
+    if case == "short_probe":
+        assert int(cnt[3]) == 0 and int(cnt[5]) == 40 - kj + 1
+    # A corpus that holds every probe (mutated) behind a pad of L + kj.
+    body = [np.where(rng.random(L) < 0.02, rng.integers(1, 5, size=L),
+                     row)[row > 0] for row in codes]
+    body = np.concatenate(body + [rng.integers(1, 5, size=300)]).astype(
+        np.uint8)
+    mega = np.concatenate([np.zeros(L + kj, np.uint8), body,
+                           np.zeros(L + s + kj, np.uint8)])
+    total = L + kj + len(body)
+    want = _jax_pairs(_jax_table(codes, kj), mega, total, kj, s)
+    q = si.rolling_hash(torch.from_numpy(mega), -(-total // s), s, kj,
+                        total - kj)
+    pc, ac = si.lookup_expand(ent, cnt, q, s)
+    assert list(zip(pc.tolist(), ac.tolist())) == want
+    assert len(want) >= P - (case == "short_probe")
 
 
 def test_rolling_hash_samples_match_hash_samples_jit():
@@ -209,11 +296,7 @@ def test_lookup_expand_matches_lookup_and_stage_b():
 
     tbl = si.build_table(sc.st["codes"], sc.kj)
     tq = si.rolling_hash(torch.from_numpy(mega), Q, sc.s, sc.kj, n_last)
-    tlo, tcnt = si.lookup_ranges_plain(tbl[0], tq)
-    assert np.array_equal(tcnt.numpy(), cnt)
-    hit = cnt > 0
-    assert hit.any()
-    assert np.array_equal(tlo.numpy()[hit], lo[hit])
+    assert (cnt > 0).any()
 
     # Pairs: the union of stage B over three subranges of the samples.
     T = sj._next_pow2(int(cnt.sum()))
@@ -279,15 +362,17 @@ def test_lookup_expand_matches_stage_b_hard_inputs(low_complexity,
     if low_complexity:
         h = tq[tq != si.HMAX]
         assert int(torch.unique(h, return_counts=True)[1].max()) >= 20
-        rows = tbl[0] != si.HMAX
-        pairs = set(zip(tbl[0][rows].tolist(), tbl[1][rows].tolist()))
-        assert len(pairs) < int(rows.sum())   # a probe repeats a kj-mer
+        th, tp, _ = si.table_entries(*tbl)
+        pairs = set(zip(th.tolist(), tp.tolist()))
+        assert len(pairs) < th.numel()   # a probe repeats a kj-mer
 
 
 def test_lookup_expand_alignment_limit():
     q = torch.zeros(10, dtype=torch.int64)
+    ent, cnt = torch.zeros((1, 1), dtype=torch.int64), torch.ones(
+        1, dtype=torch.int32)
     with pytest.raises(ValueError, match="31-bit"):
-        si.lookup_expand(q, q, q, q, 2 ** 28, sample0=0)
+        si.lookup_expand(ent, cnt, q, 2 ** 28, sample0=0)
 
 
 # ----------------------------------------------------------------------

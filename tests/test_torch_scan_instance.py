@@ -266,11 +266,12 @@ def test_pair_key_overflow_raises(monkeypatch):
 # The scan in blocks, past the kernels' 31-bit keys and positions
 # ----------------------------------------------------------------------
 
-def _patch_blocks(monkeypatch, x, split):
-    """Patch the block constants so that `split` ('probes', 'corpus' or
-    'both') cuts the scan of _scan_inputs' x: probe blocks of about a
-    quarter of the rows, corpus blocks of two sequences.  Returns the
-    port's searcher."""
+def _patch_blocks(monkeypatch, x, split, ext=0):
+    """Patch the block constants so that `split` ('probes', 'corpus',
+    'both' or 'pieces') cuts the scan of _scan_inputs' x: probe blocks
+    of about a quarter of the rows, corpus blocks of two sequences, or
+    each longest sequence in 2 pieces (at cover extension ext).  Returns
+    the port's searcher."""
     sequences, _, _, _, nU = x["scan"]
     t = convert.searcher_from_reference(convert.reference_arrays(
         x["searcher"]))
@@ -284,6 +285,9 @@ def _patch_blocks(monkeypatch, x, split):
         two = max(len(a) + len(b) for a, b in zip(sequences, sequences[1:]))
         monkeypatch.setattr(si, "_BLOCK_POSITIONS",
                             two + 4 * t.Lmax + 2 * kj + 2 * s)
+    if split == "pieces":
+        monkeypatch.setattr(si, "_BLOCK_POSITIONS", _piece_limit(
+            t, max(len(a) for a in sequences), 2, ext))
     return t
 
 
@@ -328,9 +332,9 @@ def test_split_scan_equals_unsplit_and_catch_tpu(small_shapes, monkeypatch,
         # some genome's chromosomes lie in two corpus blocks
         seq_lens = np.asarray(x["scan"][3])
         starts = si.corpus_layout(t, seq_lens)
-        plan = si.plan_corpus_blocks(t, seq_lens, starts, x["scan"][1])
+        plan = si.plan_corpus_blocks(t, seq_lens, starts, 20)
         block_of = np.repeat(np.arange(len(plan)),
-                             [i1 - i0 for i0, i1, _ in plan])
+                             [i1 - i0 for i0, i1, _, _ in plan])
         assert len(plan) == n_c and any(
             len(set(block_of[x["scan"][1] == j])) > 1
             for j in range(len(genomes)))
@@ -347,7 +351,7 @@ def _counting(fn):
     return wrapped
 
 
-@pytest.mark.parametrize("split", ["probes", "both"])
+@pytest.mark.parametrize("split", ["probes", "both", "pieces"])
 def test_split_scan_on_four_places(small_shapes, monkeypatch, split):
     """The blocks on a mesh of 4 virtual CPU places: every (probe block,
     corpus block) pair runs the per-place split, the launches by place
@@ -361,43 +365,137 @@ def test_split_scan_on_four_places(small_shapes, monkeypatch, split):
     x = _scan_inputs(genomes, dict(mismatches=2, lcf_thres=60))
     inst_j = _reference_instance(x, 20)
     want = _port_scan(x, 20)
-    _patch_blocks(monkeypatch, x, split)
+    _patch_blocks(monkeypatch, x, split, 20)
     # The twins launch nothing: count the wrappers' calls as launches.
     calls = {}
-    for name in ("rolling_hash", "lookup_expand", "verify_windows",
-                 "dedup_pairs"):
+    for name in ("build_table", "rolling_hash", "lookup_expand",
+                 "verify_windows", "dedup_pairs"):
         monkeypatch.setattr(si, name, _counting(getattr(si, name)))
         calls[name] = getattr(si, name)
     got = _port_scan(x, 20, mesh=make_mesh(4, "cpu"))
     n_p, n_c = got[2]["blocks"]
-    assert n_p > 1 and (n_c > 1) == (split == "both")
+    assert (n_p > 1) == (split != "pieces")
+    assert (n_c > 1) == (split != "probes")
     by_place = got[2]["launches_by_place"]
     assert sorted(by_place) == [0, 1, 2, 3]
     for name in ("rolling_hash", "lookup_expand", "verify_windows"):
         assert all(v[name] == n_p * n_c for v in by_place.values()), name
-        tables = n_p if name == "rolling_hash" else 0
-        assert calls[name].launches == 4 * n_p * n_c + tables, name
+        assert calls[name].launches == 4 * n_p * n_c, name
+    assert calls["build_table"].launches == n_p   # on the lead, reused
     assert calls["dedup_pairs"].launches == n_p * n_c
     _assert_split_equal(x, 20, got, want, inst_j)
 
 
-def test_sequence_longer_than_a_corpus_block_raises(monkeypatch):
-    """A single sequence that no corpus block holds raises, naming it
-    (catch_tpu designs it on the host; the kernels' positions are
-    31-bit)."""
+def _piece_limit(t, n, pieces, ext, last=None):
+    """_BLOCK_POSITIONS that cuts a sequence of n bp into `pieces`
+    pieces (cores of n + L alignments), or with `last` given into full
+    cores and a last core of at most `last` alignments."""
+    span = n + t.Lmax
+    core = -(-(span if last is None else span - last) // (
+        pieces if last is None else pieces - 1))
+    return core + si.piece_room(t, ext)
+
+
+def _pieces_of(t, x, ext):
+    """{sequence: number of pieces} of the patched plan of x's scan, and
+    the edges of every core (in alignments from the sequence start)."""
+    seq_lens = np.asarray(x["scan"][3])
+    starts = si.corpus_layout(t, seq_lens)
+    plan = si.plan_corpus_blocks(t, seq_lens, starts, ext)
+    pieces, edges = {}, []
+    for i0, _, _, core in plan:
+        if core is not None:
+            pieces[i0] = pieces.get(i0, 0) + 1
+            edges.append((i0, core[0] - int(starts[i0]),
+                          core[1] - int(starts[i0])))
+    return pieces, edges
+
+
+def test_sequence_longer_than_a_corpus_block_raises(small_shapes,
+                                                     monkeypatch):
+    """A single sequence that no corpus block holds no longer raises
+    (catch_tpu designs it on the host): with _BLOCK_POSITIONS patched
+    low, it is scanned in pieces beside blocks of whole sequences, and
+    the instance, pick order and candidate count equal the unsplit
+    run's and catch_tpu's."""
     rng = np.random.default_rng(9)
-    genomes = [TGenome.from_one_seq("".join(rng.choice(BASES, size=n)))
+    genomes = [Genome.from_one_seq("".join(rng.choice(BASES, size=n)))
                for n in (500, 2000, 600)]
-    seqs = [g.seqs[0] for g in genomes]
-    probes = [TProbe(p.seq_str) for p in make_candidate_probes_from_sequences(
-        seqs[:1], probe_length=80, probe_stride=40)]
-    searcher = TProbeSearcher(probes, TCoverModel(2, 60))
+    x = _scan_inputs(genomes, dict(mismatches=2, lcf_thres=60))
+    inst_j = _reference_instance(x, 0)
+    want = _port_scan(x, 0)
     monkeypatch.setattr(si, "_BLOCK_POSITIONS", 1500)
-    with pytest.raises(ValueError, match=r"sequence 1 \(genome 1, 2000 bp\)"):
-        si.scan_to_boundary_instance(
-            searcher, seqs, np.arange(3), np.zeros(3, np.int64),
-            np.array([len(s) for s in seqs]), 3, 0, np.ones(3),
-            np.arange(len(probes)), CPU)
+    t = convert.searcher_from_reference(convert.reference_arrays(
+        x["searcher"]))
+    pieces, _ = _pieces_of(t, x, 0)
+    assert pieces == {1: 2}
+    _assert_split_equal(x, 0, _port_scan(x, 0), want, inst_j)
+
+
+def _ragged_genomes(rng, n_genomes, n_len):
+    """One-sequence genomes cut from a common base at ragged starts and
+    ends: probes of the longer ones hang over the shorter ones' ends."""
+    base = rng.choice(BASES, size=n_len)
+    genomes = []
+    for j in range(n_genomes):
+        seq = base[11 * j:n_len - 23 * j].copy()
+        m = rng.random(len(seq)) < 0.03
+        seq[m] = rng.choice(BASES, size=int(m.sum()))
+        genomes.append(Genome.from_one_seq("".join(seq)))
+    return genomes
+
+
+@pytest.mark.parametrize("ext", [0, 50])
+@pytest.mark.parametrize("case", [
+    "two_pieces", "three_pieces", "beside_short", "edge_near_the_end"])
+def test_long_sequence_in_pieces_equals_unsplit_and_catch_tpu(
+        small_shapes, monkeypatch, case, ext):
+    """Sequences cut into pieces: each sequence into 2 or 3; a genome
+    whose long chromosome is cut while its short ones go in blocks of
+    whole sequences; and a last core shorter than a probe, so that
+    probes hanging over a true sequence end lie on both sides of a
+    piece edge.  The instance, the pick order and the candidate count
+    equal the unsplit run's and catch_tpu's."""
+    rng = np.random.default_rng(37)
+    if case == "beside_short":
+        genomes = _corpus(rng, 3, 1500, n_chrs=1)
+        genomes = [Genome.from_chrs({"a": g.seqs[0][:200],
+                                     "b": g.seqs[0][200:1300],
+                                     "c": g.seqs[0][1300:]})
+                   for g in genomes] + _corpus(rng, 1, 300)
+    elif case == "edge_near_the_end":
+        genomes = _ragged_genomes(rng, 4, 1500)
+    else:
+        genomes = _corpus(rng, 4, 1500)
+    x = _scan_inputs(genomes, dict(mismatches=2, lcf_thres=60))
+    inst_j = _reference_instance(x, ext)
+    want = _port_scan(x, ext)
+    t = convert.searcher_from_reference(convert.reference_arrays(
+        x["searcher"]))
+    seq_lens = np.asarray(x["scan"][3])
+    n = int(seq_lens.max())
+    if case == "edge_near_the_end":
+        limit = _piece_limit(t, n, 3, ext, last=t.Lmax // 2)
+    else:
+        limit = _piece_limit(t, n, 3 if case == "three_pieces" else 2, ext)
+    monkeypatch.setattr(si, "_BLOCK_POSITIONS", limit)
+    pieces, edges = _pieces_of(t, x, ext)
+    long = np.flatnonzero(seq_lens == n)
+    if case in ("three_pieces", "edge_near_the_end"):
+        assert all(pieces[i] == 3 for i in long)
+    else:
+        assert all(pieces[i] == 2 for i in long)
+    if case == "beside_short":
+        # the short chromosomes stay whole, beside the cut ones
+        assert set(pieces) == set(long) and len(seq_lens) > len(long)
+    if case == "edge_near_the_end":
+        # an edge within a probe length of its sequence's true end
+        assert any(seq_lens[i] - t.Lmax < lo < seq_lens[i]
+                   for i, lo, _ in edges)
+    got = _port_scan(x, ext)
+    assert got[2]["blocks"][1] == len(si.plan_corpus_blocks(
+        t, seq_lens, si.corpus_layout(t, seq_lens), ext))
+    _assert_split_equal(x, ext, got, want, inst_j)
 
 
 def test_long_position_axis_takes_the_host_solver(small_shapes, monkeypatch,

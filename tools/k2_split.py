@@ -15,11 +15,10 @@ whole time, its peak device memory above what was allocated before the
 call, the raw hit count, and the device time of each kernel a call
 launches (torch.profiler, CUDA activity).
 
-The script knows two implementations of K2 and times the one the
-library holds: the sort route (ct_lookup, ct_expand, torch.sort of the
-raw hits, then the compaction) and the merge route (the probe-major
-merge join and the probe-bucketed dedup of csrc/lookup_expand.cu and
-csrc/dedup_pairs.cu).
+The script times the probe-major merge join and the probe-bucketed
+dedup of csrc/lookup_expand.cu and csrc/dedup_pairs.cu, on the tree's
+own seed table: the probe-major one of build_table, or an older tree's
+hash-sorted (hash, probe, offset) arrays.
 """
 
 import argparse
@@ -31,63 +30,6 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 10
-
-
-def sort_route_lookup(torch, si, _build, tbl_h, tbl_p, tbl_pos, q, s, st):
-    lib, stream, dev = _build.library(), _build.stream_of(q), q.device
-    n_q, n_tbl = q.numel(), tbl_h.numel()
-    st.mark("start")
-    lo = torch.empty(n_q, dtype=torch.int64, device=dev)
-    cnt = torch.empty(n_q, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_lookup(_build.ptr(tbl_h), n_tbl, _build.ptr(q), n_q,
-                               _build.ptr(lo), _build.ptr(cnt), stream),
-                 "lookup")
-    st.mark("ct_lookup")
-    off = torch.cumsum(cnt, 0)
-    total = int(off[-1])
-    st.mark("cumsum+read")
-    keys = torch.empty(total, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_expand(
-        _build.ptr(lo), _build.ptr(cnt), _build.ptr(off), n_q,
-        _build.ptr(tbl_p), _build.ptr(tbl_pos), s, 0, _build.ptr(keys),
-        stream), "expand")
-    st.mark("ct_expand")
-    return sort_route_unique(torch, _build, keys, st), total
-
-
-def sort_route_unique(torch, _build, keys, st):
-    lib, stream, dev = _build.library(), _build.stream_of(keys), keys.device
-    total = keys.numel()
-    keys = torch.sort(keys, stable=True).values
-    st.mark("torch.sort")
-    flags = torch.empty(total, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_unique_flags(_build.ptr(keys), total,
-                                     _build.ptr(flags), stream), "flags")
-    pos = torch.cumsum(flags, 0)
-    n = int(pos[-1])
-    p = torch.empty(n, dtype=torch.int64, device=dev)
-    a = torch.empty(n, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_unique_emit(
-        _build.ptr(keys), _build.ptr(flags), _build.ptr(pos), total,
-        _build.ptr(p), _build.ptr(a), stream), "emit")
-    st.mark("flags+cumsum+read+emit")
-    return p, a
-
-
-def sort_route_dedup(torch, si, _build, p, a, st):
-    st.mark("start")
-    keys = (p << 32) | a
-    st.mark("pack keys")
-    return sort_route_unique(torch, _build, keys, st)
-
-
-def merge_route_lookup(torch, si, _build, tbl_h, tbl_p, tbl_pos, q, s, st):
-    out = si._lookup_expand_cuda(tbl_h, tbl_p, tbl_pos, q, s, 0, steps=st)
-    return out, None
-
-
-def merge_route_dedup(torch, si, _build, p, a, st):
-    return si._dedup_pairs_cuda(p, a, si.DEDUP_TILE, steps=st)
 
 
 def timed(torch, Steps, fn):
@@ -141,13 +83,9 @@ def main():
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     os.makedirs(chip_smoke.WORK, exist_ok=True)
-    from catch_tpu_torch import _build
     from catch_tpu_torch.ops import scan_instance as si
     if not os.path.abspath(si.__file__).startswith(root):
         sys.exit(f"k2_split: imported {si.__file__}, not from {root}")
-    lib = _build.library()
-    sort_route = hasattr(lib, "ct_lookup")
-    route = "sort" if sort_route else "merge"
     device = torch.device("cuda", 0)
     card = chip_smoke.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"]).splitlines()[0]
@@ -157,22 +95,23 @@ def main():
     tbl = si.build_table(st_["codes"], kj)
     q = si.rolling_hash(st_["mega"], -(-total // s), s, kj, total - kj)
     want = si._lookup_expand_plain(*tbl, q, s)
-    look = sort_route_lookup if sort_route else merge_route_lookup
     holder = {}
 
     def run_lookup(st):
-        holder["out"], holder["raw"] = look(torch, si, _build, *tbl, q, s, st)
+        holder["out"] = si._lookup_expand_cuda(*tbl, q, s, 0, steps=st)
 
     med, whole, peak = timed(torch, chip_smoke.Steps, run_lookup)
     for g, w in zip(holder["out"], want):
         if not torch.equal(g, w):
             sys.exit("k2_split: lookup_expand differs from its twin")
-    qs, h = torch.sort(q).values, tbl[0][tbl[0] != si.HMAX]
+    h = (si.table_entries(*tbl)[0] if len(tbl) == 2
+         else tbl[0][tbl[0] != si.HMAX])
+    qs = torch.sort(q).values
     raw = int((torch.searchsorted(qs, h, right=True)
                - torch.searchsorted(qs, h)).sum())
     print(json.dumps(dict(
-        card=card, route=route, root=root, what="lookup_expand",
-        probes=int(st_["codes"].shape[0]), table_rows=int(tbl[0].numel()),
+        card=card, root=root, what="lookup_expand",
+        probes=int(st_["codes"].shape[0]), table_entries=int(h.numel()),
         samples=int(q.numel()), raw_hits=raw, pairs=int(want[0].numel()),
         steps_ms=med, whole_ms=whole, peak_mib=peak / 2**20,
         kernel_us=kernel_times(torch, lambda: run_lookup(
@@ -188,10 +127,9 @@ def main():
     p, a = si.join_on(device, pairs)
     del pairs
     want = si._dedup_pairs_plain(p, a)
-    dd = sort_route_dedup if sort_route else merge_route_dedup
 
     def run_dedup(st):
-        holder["out"] = dd(torch, si, _build, p, a, st)
+        holder["out"] = si._dedup_pairs_cuda(p, a, si.DEDUP_TILE, steps=st)
 
     holder = {}
     med, whole, peak = timed(torch, chip_smoke.Steps, run_dedup)
@@ -201,7 +139,7 @@ def main():
     keys = (p << 32) | a
     lib_ms = chip_smoke.cuda_ms(torch, lambda: torch.unique(keys), REPS)[0]
     print(json.dumps(dict(
-        card=card, route=route, root=root, what="dedup_pairs",
+        card=card, root=root, what="dedup_pairs",
         pairs_in=int(p.numel()), pairs_out=int(want[0].numel()),
         steps_ms=med, whole_ms=whole, peak_mib=peak / 2**20,
         torch_unique_packed_ms=lib_ms,
