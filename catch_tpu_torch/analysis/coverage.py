@@ -24,7 +24,7 @@ import numpy as np
 from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.filters.set_cover_filter import _reverse_complement
 from catch_tpu_torch.ops.cover import CoverModel, ProbeSearcher
-from catch_tpu_torch.utils import intervals, pretty_print
+from catch_tpu_torch.utils import dynamic_load, intervals, pretty_print
 
 logger = logging.getLogger(__name__)
 
@@ -40,11 +40,8 @@ class Analyzer:
         """Args follow the reference contract
         (coverage_analysis.py:77-155); `device` (a name or a
         torch.device) is where the scan runs, checked by
-        device.resolve_device."""
-        if custom_cover_range_fn is not None:
-            raise NotImplementedError(
-                "custom cover functions are not ported to catch_tpu_torch "
-                "yet (ROADMAP queue 1, item 12)")
+        device.resolve_device.  A custom cover function is scanned on the
+        host (ops/cover.ProbeSearcher), as in catch_tpu."""
         self.device = resolve_device(device)
         self.probes = probes
         self.target_genomes = target_genomes
@@ -58,7 +55,13 @@ class Analyzer:
             self.target_genomes_names = [
                 "Group %d" % i for i in range(len(target_genomes))]
 
-        self.model = CoverModel(mismatches, lcf_thres, island_of_exact_match)
+        if custom_cover_range_fn is not None:
+            fn_path, fn_name = custom_cover_range_fn
+            fn = dynamic_load.load_function_from_path(fn_path, fn_name)
+            self.model = CoverModel(custom_fn=fn)
+        else:
+            self.model = CoverModel(mismatches, lcf_thres,
+                                    island_of_exact_match)
         self.cover_extension = cover_extension
         self.kmer_probe_map_k = kmer_probe_map_k
         self.rc_too = rc_too

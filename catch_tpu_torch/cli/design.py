@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """Design probes for genome capture on a GPU (main executable).
 
-The port of catch_tpu/cli/design.py for the flags the slices serve:
-datasets as FASTA files, candidate tiling, duplicate or near-duplicate
+The port of catch_tpu/cli/design.py: datasets as FASTA files, candidate
+tiling, the FASTA and poly(A) filters, duplicate or near-duplicate
 removal (MinHash or Hamming LSH), MinHash clustering of the inputs with
-a design per cluster, set cover under the mismatch/LCS model,
-identification, avoided genomes, the tolerant model and the coverage
-analysis, with the same flag names and the same 'basic' and 'large'
-defaults.  `--device` (default `cuda`) says where the kernels run; a
-missing CUDA device is an error, never a quiet switch to the CPU.
-`--num-devices` spreads the scans over a mesh of that many devices; a
-mesh that cannot be built is an error too.  Every other flag of
-catch_tpu's CLI is refused with the ROADMAP item that will bring it,
-and so is a mesh across processes (CATCH_TPU_COORDINATOR or
-CATCH_TPU_MULTIHOST in the environment: ROADMAP queue 1, item 10b).
+a design per cluster, set cover under the mismatch/LCS model or a
+custom hybridization function, identification, avoided genomes, the
+tolerant model, adapters, N expansion, reverse complements, skipping
+the set cover and the coverage analysis, with the same flag names and
+the same 'basic' and 'large' defaults.  `--device` (default `cuda`)
+says where the kernels run; a missing CUDA device is an error, never a
+quiet switch to the CPU.  `--num-devices` spreads the scans over a mesh
+of that many devices; a mesh that cannot be built is an error too.  The
+two NCBI flags are refused (they need the network), and so is a mesh
+across processes (CATCH_TPU_COORDINATOR or CATCH_TPU_MULTIHOST in the
+environment: ROADMAP queue 1, item 10b).
 
 Run as ``python -m catch_tpu_torch.cli.design``, or with the 'large'
 defaults as ``python -m catch_tpu_torch.cli.design_large``.
@@ -22,31 +23,30 @@ defaults as ``python -m catch_tpu_torch.cli.design_large``.
 import argparse
 import logging
 import os
+import random
 
 from catch_tpu_torch import designer as probe_designer
 from catch_tpu_torch.analysis import coverage as coverage_analysis
 from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.filters import base as filter_base
+from catch_tpu_torch.filters.adapter import AdapterFilter
 from catch_tpu_torch.filters.duplicate import DuplicateFilter
+from catch_tpu_torch.filters.fasta import FastaFilter
+from catch_tpu_torch.filters.n_expansion import NExpansionFilter
 from catch_tpu_torch.filters.near_duplicate import (
     NearDuplicateFilterWithHammingDistance, NearDuplicateFilterWithMinHash)
+from catch_tpu_torch.filters.polya import PolyAFilter
+from catch_tpu_torch.filters.reverse_complement import ReverseComplementFilter
 from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
 from catch_tpu_torch.parallel import mesh as device_mesh
 from catch_tpu_torch.utils import log, seq_io, version
 
 _ARGS_TYPES = ("basic", "large")
 
-# Flags of catch_tpu/cli/design.py that the port refuses, with where
-# in ROADMAP.md queue 1 they come back.
+# Flags of catch_tpu/cli/design.py that the port refuses, and why.
 _REFUSED = {
     ("--write-taxid-acc", "--ncbi-api-key"):
         "NCBI downloads need the network",
-    ("--custom-hybridization-fn", "--custom-hybridization-fn-tolerant",
-     "--filter-from-fasta", "--skip-set-cover", "--add-adapters",
-     "--adapter-a", "--adapter-b", "--filter-polya",
-     "--add-reverse-complements", "--expand-n",
-     "--limit-target-genomes-randomly-with-replacement"):
-        "ROADMAP queue 1, item 12",
 }
 
 
@@ -80,8 +80,18 @@ def main(args):
                 "are not supported)")
         genomes_grouped.append(seq_io.read_genomes_from_fasta(ds))
         genomes_grouped_names.append(os.path.basename(ds))
-    if args.limit_target_genomes:
+    if (args.limit_target_genomes and
+            args.limit_target_genomes_randomly_with_replacement):
+        raise Exception(
+            "--limit-target-genomes and "
+            "--limit-target-genomes-randomly-with-replacement are "
+            "mutually exclusive")
+    elif args.limit_target_genomes:
         genomes_grouped = [genomes[:args.limit_target_genomes]
+                           for genomes in genomes_grouped]
+    elif args.limit_target_genomes_randomly_with_replacement:
+        k = args.limit_target_genomes_randomly_with_replacement
+        genomes_grouped = [random.choices(genomes, k=k)
                            for genomes in genomes_grouped]
 
     if args.args_type != "large":
@@ -140,8 +150,24 @@ def main(args):
         kmer_probe_map_k = args.kmer_probe_map_k
         kmer_probe_map_k_analyzer = args.kmer_probe_map_k
     else:
+        if args.probe_length <= 20:
+            logger.warning(
+                "With a PROBE_LENGTH this small (%d), a small "
+                "--kmer-probe-map-k makes the probe-to-target mapping "
+                "more sensitive", args.probe_length)
         kmer_probe_map_k = 20
         kmer_probe_map_k_analyzer = 10
+
+    if args.add_adapters:
+        if not (args.adapter_a or args.adapter_b):
+            logger.warning(
+                "--add-adapters without --adapter-a/--adapter-b uses "
+                "the built-in default adapter sequences")
+    else:
+        if args.adapter_a or args.adapter_b:
+            raise Exception(
+                "--adapter-a/--adapter-b have no effect unless "
+                "--add-adapters is also given")
 
     if args.small_seq_skip is not None and args.small_seq_min is not None:
         raise Exception(
@@ -159,6 +185,35 @@ def main(args):
             "--cluster-from-fragments only applies when "
             "--cluster-and-design-separately is set")
 
+    custom_cover_range_fn = (tuple(args.custom_hybridization_fn)
+                             if args.custom_hybridization_fn else None)
+    custom_cover_range_tolerant_fn = (
+        tuple(args.custom_hybridization_fn_tolerant)
+        if args.custom_hybridization_fn_tolerant else None)
+
+    # The ordered filter chain, as catch_tpu assembles it.
+    filters = []
+    if args.filter_from_fasta:
+        filters.append(FastaFilter(args.filter_from_fasta,
+                                   skip_reverse_complements=True))
+
+    if args.filter_polya:
+        polya_length, polya_mismatches = args.filter_polya
+        if polya_length > args.probe_length:
+            logger.warning(
+                "The poly(A) run length to filter (%d) exceeds "
+                "PROBE_LENGTH (%d); no probe can contain such a run",
+                polya_length, args.probe_length)
+        if polya_length < 10:
+            logger.warning(
+                "A poly(A) run length this short (%d) will drop many "
+                "probes", polya_length)
+        if polya_mismatches > 10:
+            logger.warning(
+                "Tolerating %d mismatches in poly(A) runs is "
+                "aggressive and will drop many probes", polya_mismatches)
+        filters.append(PolyAFilter(polya_length, polya_mismatches))
+
     if (args.filter_with_lsh_hamming is not None
             and args.filter_with_lsh_minhash is not None):
         raise Exception("--filter-with-lsh-hamming and "
@@ -171,8 +226,8 @@ def main(args):
                 "can collapse probes the model distinguishes, so the "
                 "design may fall short of the requested coverage",
                 args.filter_with_lsh_hamming, args.mismatches)
-        dedup = NearDuplicateFilterWithHammingDistance(
-            args.filter_with_lsh_hamming, args.probe_length, device=device)
+        filters.append(NearDuplicateFilterWithHammingDistance(
+            args.filter_with_lsh_hamming, args.probe_length, device=device))
     elif args.filter_with_lsh_minhash is not None:
         if args.mismatches < 3:
             logger.warning(
@@ -180,10 +235,10 @@ def main(args):
                 "collapsing (especially with a large threshold) can "
                 "leave the design short of the requested coverage",
                 args.mismatches)
-        dedup = NearDuplicateFilterWithMinHash(
-            args.filter_with_lsh_minhash, device=device)
+        filters.append(NearDuplicateFilterWithMinHash(
+            args.filter_with_lsh_minhash, device=device))
     else:
-        dedup = DuplicateFilter()
+        filters.append(DuplicateFilter())
 
     if args.max_num_processes is not None:
         filter_base.set_max_num_processes_for_filter_over_groupings(
@@ -213,23 +268,49 @@ def main(args):
         mismatches_tolerant=args.mismatches_tolerant,
         lcf_thres_tolerant=args.lcf_thres_tolerant,
         island_of_exact_match_tolerant=args.island_of_exact_match_tolerant,
+        custom_cover_range_fn=custom_cover_range_fn,
+        custom_cover_range_tolerant_fn=custom_cover_range_tolerant_fn,
         identify=args.identify, avoided_genomes=avoided_genomes_fasta,
         coverage=args.coverage, cover_extension=args.cover_extension,
         kmer_probe_map_k=kmer_probe_map_k,
         kmer_probe_map_use_native_dict=(
             args.use_native_dict_when_finding_tolerant_coverage),
         device=device, mesh=mesh)
+    filters.append(scf)
+
+    if args.add_adapters:
+        adapter_a = (tuple(args.adapter_a) if args.adapter_a
+                     else ("ATACGCCATGCTGGGTCTCC", "CGTACTTGGGAGTCGGCCAT"))
+        adapter_b = (tuple(args.adapter_b) if args.adapter_b
+                     else ("AGGCCCTGGCTGCTGATATG", "GACCTTTTGGGACAGCGGTG"))
+        filters.append(AdapterFilter(
+            adapter_a, adapter_b, mismatches=args.mismatches,
+            lcf_thres=args.lcf_thres,
+            island_of_exact_match=args.island_of_exact_match,
+            custom_cover_range_fn=custom_cover_range_fn,
+            kmer_probe_map_k=kmer_probe_map_k, device=device))
+
+    if args.expand_n is not None:
+        filters.append(NExpansionFilter(
+            limit_n_expansion_randomly=args.expand_n))
+
+    if args.add_reverse_complements:
+        filters.append(ReverseComplementFilter())
+
+    if args.skip_set_cover:
+        filter_before_scf = filters[filters.index(scf) - 1]
+        filters.remove(scf)
+
     cluster_kw = {}
     if args.cluster_and_design_separately:
-        # --skip-set-cover is refused (item 12), so the clusters merge
-        # after the set cover.
         cluster_kw = dict(
             cluster_threshold=args.cluster_and_design_separately,
-            cluster_merge_after=scf,
+            cluster_merge_after=(filter_before_scf if args.skip_set_cover
+                                 else scf),
             cluster_method=args.cluster_and_design_separately_method,
             cluster_fragment_length=args.cluster_from_fragments)
     pb = probe_designer.ProbeDesigner(
-        genomes_grouped, [dedup, scf],
+        genomes_grouped, filters,
         probe_length=args.probe_length, probe_stride=args.probe_stride,
         allow_small_seqs=args.small_seq_min,
         seq_length_to_skip=args.small_seq_skip, device=device,
@@ -241,16 +322,14 @@ def main(args):
     if (args.print_analysis or args.write_analysis_to_tsv
             or args.write_sliding_window_coverage
             or args.write_probe_map_counts_to_tsv):
-        # --add-reverse-complements is refused (item 12), so the
-        # analysis scans the forward strands, as catch_tpu does without
-        # that flag.
         analyzer = coverage_analysis.Analyzer(
             pb.final_probes, args.mismatches, args.lcf_thres,
             genomes_grouped, genomes_grouped_names,
             island_of_exact_match=args.island_of_exact_match,
+            custom_cover_range_fn=custom_cover_range_fn,
             cover_extension=args.cover_extension,
-            kmer_probe_map_k=kmer_probe_map_k_analyzer, rc_too=False,
-            device=device)
+            kmer_probe_map_k=kmer_probe_map_k_analyzer,
+            rc_too=args.add_reverse_complements, device=device)
         analyzer.run()
         if args.write_analysis_to_tsv:
             analyzer.write_data_matrix_as_tsv(args.write_analysis_to_tsv)
@@ -298,6 +377,10 @@ def init_and_parse_args(argv=None, args_type="basic"):
     parser.add_argument("--island-of-exact-match", type=int, default=0,
         help=("(Optional) Require an exact match of at least this "
               "length for a probe to cover a sequence"))
+    parser.add_argument("--custom-hybridization-fn", nargs=2,
+        help=("(Optional) Args: <PATH> <FUNC>; dynamically loaded "
+              "custom hybridization model (6-argument contract; see the "
+              "reference documentation), run on the host"))
 
     def check_coverage(val):
         fval = float(val)
@@ -330,6 +413,8 @@ def init_and_parse_args(argv=None, args_type="basic"):
     parser.add_argument("--island-of-exact-match-tolerant", type=int,
         default=0,
         help="(Optional) More tolerant value for 'island_of_exact_match'")
+    parser.add_argument("--custom-hybridization-fn-tolerant", nargs=2,
+        help="(Optional) More tolerant custom hybridization model")
     parser.add_argument("--print-analysis", dest="print_analysis",
         action="store_true",
         help="Print analysis of the probe set's coverage")
@@ -341,6 +426,32 @@ def init_and_parse_args(argv=None, args_type="basic"):
     parser.add_argument("--write-probe-map-counts-to-tsv",
         help=("(Optional) File for a TSV of the number of sequences "
               "each probe maps to (not counting reverse complements)"))
+    parser.add_argument("--filter-from-fasta",
+        help=("(Optional) Keep only candidate probes equal to sequences "
+              "in this FASTA (headers containing 'reverse complement' "
+              "are ignored); useful with --skip-set-cover"))
+    parser.add_argument("--skip-set-cover", dest="skip_set_cover",
+        action="store_true",
+        help="Skip the set cover filter")
+    parser.add_argument("--add-adapters", dest="add_adapters",
+        action="store_true",
+        help=("Add adapters to the ends of probes; to specify adapter "
+              "sequences, use --adapter-a and --adapter-b"))
+    parser.add_argument("--adapter-a", nargs=2,
+        help="(Optional) Args: <X> <Y>; custom A adapter (5'/3' ends)")
+    parser.add_argument("--adapter-b", nargs=2,
+        help="(Optional) Args: <X> <Y>; custom B adapter (5'/3' ends)")
+    parser.add_argument("--filter-polya", nargs=2, type=int,
+        help=("(Optional) Args: <X> <Y>; drop probes containing X or "
+              "more 'A' bases tolerating up to Y mismatches (likewise "
+              "'T')"))
+    parser.add_argument("--add-reverse-complements",
+        dest="add_reverse_complements", action="store_true",
+        help="Add to the output the reverse complement of each probe")
+    parser.add_argument("--expand-n", nargs="?", type=int, default=None,
+        const=3,
+        help=("Expand 'N' bases into real bases; optional INT limits the "
+              "number expanded (default 3), the rest replaced randomly"))
 
     def check_cluster_and_design_separately(val):
         fval = float(val)
@@ -385,6 +496,10 @@ def init_and_parse_args(argv=None, args_type="basic"):
               "values ~0.5-0.7 typical)"))
     parser.add_argument("--limit-target-genomes", type=int,
         help="(Optional) Use only the first N target genomes per dataset")
+    parser.add_argument(
+        "--limit-target-genomes-randomly-with-replacement", type=int,
+        help=("(Optional) Randomly select N target genomes per dataset "
+              "with replacement"))
     parser.add_argument("--small-seq-skip", type=int,
         help=("(Optional) Do not create candidate probes from sequences "
               "of length <= SMALL_SEQ_SKIP"))

@@ -14,6 +14,14 @@ tolerant model's unmerged span scan (ops/scan_sparse) on the same
 device, merged there per (probe, strand).  There is no
 size-based route to a host scan and no fallback: a failing scan raises.
 
+A custom cover function (custom_cover_range_fn, loaded by
+utils/dynamic_load) is a Python callable, so a model with one takes
+catch_tpu's host route for it: ProbeSearcher's host scan, the flat cover
+arrays, set_cover.build_instance_from_cover_arrays and the host lazy
+solver, with no kernel; a custom tolerant function gives its ranks from
+the same host scan, merged on the host.  The route is chosen by the
+model alone.
+
 With `mesh` (a parallel.mesh.Mesh led by `device`), every searcher the
 filter builds gets it: the design scan splits its hashing, lookup and
 verification over the places, and the span scan its verification.  As
@@ -22,8 +30,6 @@ host route solves on the host, and CATCH_TPU_SOLVE=device solves on the
 lead whatever the mesh.  The caller still holds one lock around the
 whole filter call, so design_large's group threads take turns on the
 mesh as they do on one device.
-
-Not ported yet: custom cover functions (ROADMAP queue 1, item 12).
 """
 
 import logging
@@ -37,7 +43,7 @@ from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.filters.base import BaseFilter
 from catch_tpu_torch.ops import scan_instance, scan_sparse, set_cover
 from catch_tpu_torch.ops.cover import CoverModel, ProbeSearcher
-from catch_tpu_torch.utils import profiling, seq_io
+from catch_tpu_torch.utils import dynamic_load, profiling, seq_io
 
 logger = logging.getLogger(__name__)
 
@@ -77,26 +83,32 @@ class SetCoverFilter(BaseFilter):
         ignored.  `device` (a name or a torch.device) is where the scans
         run, checked by device.resolve_device; `mesh`, if given, must be
         led by it."""
-        if (custom_cover_range_fn is not None
-                or custom_cover_range_tolerant_fn is not None):
-            raise NotImplementedError(
-                "custom cover functions are not ported to catch_tpu_torch "
-                "yet (ROADMAP queue 1, item 12)")
         self.device = resolve_device(device)
         if mesh is not None and mesh.lead != self.device:
             raise ValueError(f"the mesh is led by {mesh.lead}, the filter "
                              f"runs on {self.device}")
         self.mesh = mesh
-        self.model = CoverModel(mismatches, lcf_thres, island_of_exact_match)
+        if custom_cover_range_fn is not None:
+            fn_path, fn_name = custom_cover_range_fn
+            fn = dynamic_load.load_function_from_path(fn_path, fn_name)
+            self.model = CoverModel(custom_fn=fn)
+        else:
+            self.model = CoverModel(mismatches, lcf_thres,
+                                    island_of_exact_match)
         if not mismatches_tolerant:
             mismatches_tolerant = mismatches
         if not lcf_thres_tolerant:
             lcf_thres_tolerant = lcf_thres
         if not island_of_exact_match_tolerant:
             island_of_exact_match_tolerant = island_of_exact_match
-        self.tolerant_model = CoverModel(mismatches_tolerant,
-                                         lcf_thres_tolerant,
-                                         island_of_exact_match_tolerant)
+        if custom_cover_range_tolerant_fn is not None:
+            fn_path, fn_name = custom_cover_range_tolerant_fn
+            fn = dynamic_load.load_function_from_path(fn_path, fn_name)
+            self.tolerant_model = CoverModel(custom_fn=fn)
+        else:
+            self.tolerant_model = CoverModel(
+                mismatches_tolerant, lcf_thres_tolerant,
+                island_of_exact_match_tolerant)
         if identify:
             if (coverage <= 1.0 and coverage >= 0.25) or \
                (coverage > 1 and coverage >= 5000):
@@ -135,6 +147,27 @@ class SetCoverFilter(BaseFilter):
         return (searcher, pid_of, sequences, np.array(seq_univ, np.int64),
                 np.array(seq_off, np.int64), np.array(seq_len, np.int64))
 
+    def _make_cover_arrays(self, prepared):
+        """Cover spans of every candidate in every target genome, from
+        the searcher's host scan of a custom model.
+
+        Returns flat arrays (set_ids, univ_ids, starts, ends) with
+        cover extension applied and clamped per chromosome, and
+        coordinates offset into genome-global positions
+        (reference set_cover_filter.py:414-470).
+        """
+        searcher, pid_of, sequences, seq_univ, seq_off, seq_len = prepared
+        logger.info("Computing coverage across %d target sequences on "
+                    "the host", len(sequences))
+        p_idx, s_idx, st, en = searcher.find_probe_covers_flat(sequences)
+        if len(p_idx) == 0:
+            z = np.empty(0, dtype=np.int64)
+            return z, z.copy(), z.copy(), z.copy()
+        st = np.maximum(0, st - self.cover_extension)
+        en = np.minimum(seq_len[s_idx], en + self.cover_extension)
+        return (pid_of[p_idx], seq_univ[s_idx],
+                st + seq_off[s_idx], en + seq_off[s_idx])
+
     def _tolerant_bp_batched(self, searcher, sequences, rc_too=True):
         """Per-searcher-probe bp covered across `sequences` (and their
         reverse complements) under the tolerant model, from one span
@@ -142,8 +175,9 @@ class SetCoverFilter(BaseFilter):
 
         Merging is per (probe, strand-sequence), on the device with
         segmented_merge: identical to summing find_probe_covers' merged
-        ranges per strand.  Returns int64[len(searcher.probes)] of total
-        covered bp.
+        ranges per strand.  A custom tolerant model is scanned and
+        merged on the host, as catch_tpu does.  Returns
+        int64[len(searcher.probes)] of total covered bp.
         """
         strands = list(sequences)
         if rc_too:
@@ -152,6 +186,13 @@ class SetCoverFilter(BaseFilter):
         if not strands or searcher.empty:
             return np.zeros(n_probes, dtype=np.int64)
         n_strands = len(strands)
+        if searcher.model.custom_fn is not None:
+            p, s_idx, st, en = searcher.find_probe_covers_flat(strands)
+            gk, gs, ge = set_cover._merge_by_group(p * n_strands + s_idx,
+                                                   st, en)
+            bp = np.zeros(n_probes, dtype=np.int64)
+            np.add.at(bp, gk // n_strands, ge - gs)
+            return bp
         if n_probes * n_strands >= scan_instance._PAIR_KEY_LIMIT:
             raise ValueError(
                 f"{n_probes} probes x {n_strands} strands exceed the 31-bit "
@@ -251,38 +292,52 @@ class SetCoverFilter(BaseFilter):
         return p
 
     def _solve_group(self, possible_probes, target_genomes, ranks, stats):
-        """Scan the group on the device and solve it in the rank tiers of
-        `ranks`; returns the chosen candidate ids in pick order."""
+        """Scan the group and solve it in the rank tiers of `ranks`;
+        returns the chosen candidate ids in pick order.
+
+        The default model is scanned on the device.  A custom model is
+        scanned on the host and solved by the host lazy solver, as
+        catch_tpu's _filter does for it (:380-402)."""
         t0 = time.time()
-        searcher, pid_of, sequences, seq_univ, seq_off, seq_len = \
-            self._prepare_scan(possible_probes, target_genomes)
+        prepared = self._prepare_scan(possible_probes, target_genomes)
+        searcher, pid_of, sequences, seq_univ, seq_off, seq_len = prepared
         profiling.add_phase("set_cover:prepare", time.time() - t0)
         universe_p = self._make_universe_p(target_genomes)
-        rank_vals = np.unique(ranks)
-        rank_idx = np.searchsorted(rank_vals, ranks).astype(np.int32)
-        costs = np.ones(len(possible_probes), dtype=np.float32)
+        on_device = False
         t0 = time.time()
-        dev, perm = scan_instance.scan_to_boundary_instance(
-            searcher, sequences, seq_univ, seq_off, seq_len,
-            len(target_genomes), self.cover_extension, universe_p, pid_of,
-            self.device)
-        on_device = os.environ.get("CATCH_TPU_SOLVE") == "device"
-        if on_device and int(dev["offsets"][-1]) >= \
-                set_cover._DEVICE_AXIS_LIMIT:
-            # The device solver's coordinates are int32: catch_tpu's host
-            # route, a size seen before any launch.
-            logger.warning("Global position axis exceeds int32; falling "
-                           "back to the host instance build")
-            on_device = False
-        if on_device:
-            # Stage E and the greedy steps on the device; only the picks
-            # come back.
-            scan_instance.ensure_assembled(dev, perm, pid_of, rank_idx,
-                                           len(rank_vals), costs)
+        if self.model.custom_fn is not None:
+            set_ids, univ_ids, starts, ends = self._make_cover_arrays(
+                prepared)
+            inst = set_cover.build_instance_from_cover_arrays(
+                set_ids, univ_ids, starts, ends,
+                n_sets=len(possible_probes),
+                n_universes=len(target_genomes), universe_p=universe_p,
+                ranks=ranks)
         else:
-            inst = scan_instance.instance_to_host(
-                dev, perm, pid_of, len(possible_probes), rank_idx,
-                len(rank_vals), costs)
+            rank_vals = np.unique(ranks)
+            rank_idx = np.searchsorted(rank_vals, ranks).astype(np.int32)
+            costs = np.ones(len(possible_probes), dtype=np.float32)
+            dev, perm = scan_instance.scan_to_boundary_instance(
+                searcher, sequences, seq_univ, seq_off, seq_len,
+                len(target_genomes), self.cover_extension, universe_p,
+                pid_of, self.device)
+            on_device = os.environ.get("CATCH_TPU_SOLVE") == "device"
+            if on_device and int(dev["offsets"][-1]) >= \
+                    set_cover._DEVICE_AXIS_LIMIT:
+                # The device solver's coordinates are int32: catch_tpu's
+                # host route, a size seen before any launch.
+                logger.warning("Global position axis exceeds int32; "
+                               "falling back to the host instance build")
+                on_device = False
+            if on_device:
+                # Stage E and the greedy steps on the device; only the
+                # picks come back.
+                scan_instance.ensure_assembled(dev, perm, pid_of, rank_idx,
+                                               len(rank_vals), costs)
+            else:
+                inst = scan_instance.instance_to_host(
+                    dev, perm, pid_of, len(possible_probes), rank_idx,
+                    len(rank_vals), costs)
         stats["scan_seconds"] += time.time() - t0
         t0 = time.time()
         if on_device:

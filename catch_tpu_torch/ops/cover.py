@@ -1,4 +1,4 @@
-# Copied from catch_tpu/ops/cover.py (CoverModel, choose_seed_length, the ProbeSearcher state, its seed join table and span API).
+# Copied from catch_tpu/ops/cover.py (CoverModel, choose_seed_length, the ProbeSearcher state, its seed join table, span API and the host scan of a custom cover function).
 """Probe cover model, the searcher state the device scans read, and the
 unmerged span API.
 
@@ -8,9 +8,13 @@ at most `mismatches` mismatches that contains an exact run of at least
 max(k_seed, island_of_exact_match) matches.  The design scan
 (ops/scan_instance.py) reads the encoded probes; the span scan
 (ops/scan_sparse.py) also reads the minimizer join table built here.
-find_probe_covers_flat and find_probe_covers always run the span scan on
-the searcher's `device`: catch_tpu's per-sequence host path, its
-size-based routing and its fallback are not ported.
+find_probe_covers_flat and find_probe_covers run the span scan on the
+searcher's `device` for the default model.  A model with a custom cover
+function (a Python callable run once per seed anchor of a candidate)
+takes catch_tpu's per-sequence host scan instead, copied here in the
+part such a model uses; that route is chosen by the model alone, never
+by size or after a failure.  catch_tpu's size-based routing of the
+default model to its host scan, and its fallback, are not ported.
 """
 
 import numpy as np
@@ -30,7 +34,8 @@ class CoverModel:
 
     mismatches/lcf_thres/island_of_exact_match follow the reference
     contract.  custom_fn, if given, is a host callable with the
-    reference's 6-argument signature; the port does not run it yet.
+    reference's 6-argument signature; it replaces the default model and
+    mismatches/lcf_thres are ignored.
     """
 
     def __init__(self, mismatches=None, lcf_thres=None,
@@ -79,6 +84,8 @@ class ProbeSearcher:
     seed_mode, alphabet, probe_codes, Lmax, lcf_static, K_static,
     fast_ok and stats; ops/scan_sparse.py also reads the join table
     (_join_h, _join_p, _join_pos, _join_kw) and device; both read mesh.
+    A model with custom_fn is scanned on the host here, and no device
+    scan takes it.
     """
 
     def __init__(self, probes, model, kmer_probe_map_k=20, *, device=None,
@@ -90,7 +97,8 @@ class ProbeSearcher:
             kmer_probe_map_k: min_k and k for seed-length selection
                 (reference SetCoverFilter's kmer_probe_map_k)
             device: torch.device where find_probe_covers_flat and
-                find_probe_covers scan; they raise while it is None
+                find_probe_covers scan the default model; they raise
+                while it is None (a custom model is scanned on the host)
             mesh: optional parallel.mesh.Mesh led by `device`; with more
                 than one place, the scans spread their verification
                 (and the design scan its hashing and lookup) over the
@@ -232,6 +240,192 @@ class ProbeSearcher:
         self._join_kw = (kj, w)
 
     # ------------------------------------------------------------------
+    # The host scan of a custom cover function
+    # ------------------------------------------------------------------
+    #
+    # catch_tpu sends a model with custom_fn down its per-sequence host
+    # scan (catch_tpu/ops/cover.py:680-681): phase 1 finds candidate
+    # (probe, alignment) pairs, by a dense scan of every alignment for
+    # small workloads or by the exact k-mer join, and phase 2 calls the
+    # function once per anchor of k_seed consecutive matches.  Copied
+    # here as a custom model uses it: such a model has no mismatch
+    # count, so the fast path and its match-count predicate never apply.
+
+    # Workloads below this many (alignment x probe x position) cells
+    # take the dense phase 1 (the same candidates as the join).
+    _HOST_PHASE1_MAX_CELLS = 1 << 22
+
+    def _candidates_host(self, seq_codes):
+        """Phase 1 by a dense scan of every alignment of every probe."""
+        n = len(seq_codes)
+        L = self.Lmax
+        padded = np.zeros(n + 2 * L, dtype=np.uint8)
+        padded[L:L + n] = seq_codes
+        # Row r corresponds to alignment a = r - (L-1); window (r, j)
+        # reads padded[L + a + j] = padded[r + j + 1]
+        num_align = n + L - 1
+        idx = (np.arange(num_align)[:, None] + np.arange(L)[None, :])
+        win = padded[idx + 1]
+        probes = self.probe_codes  # (P, L)
+        match = (win[:, None, :] == probes[None, :, :]) & (win[:, None, :] > 0)
+        counts = match.sum(axis=2, dtype=np.int32)  # (num_align, P)
+
+        a = np.arange(num_align) - (L - 1)
+        lens = self.probe_lens[None, :]
+        ov = np.minimum(n, a[:, None] + lens) - np.maximum(0, a[:, None])
+        ov = np.maximum(ov, 0)
+        thres = np.minimum(np.minimum(self.lcf_static, lens), n)
+        # a custom model has no mismatch count: k_seed matches are needed
+        cand = ((ov >= np.maximum(thres, self.k_seed))
+                & (counts >= self.k_seed) & (lens > 0) & (thres > 0))
+        w_idx, p_idx = np.nonzero(cand)
+        return (p_idx.astype(np.int64),
+                (w_idx - (L - 1)).astype(np.int64))
+
+    def _join_pairs(self, codes):
+        """Raw k-mer join of a 1-D code array against the probe table.
+
+        Returns deduplicated candidate (probe_idx, alignment) int64
+        arrays, alignments in the coordinates of `codes`.
+        """
+        if self._join_h is None:
+            self._build_join_table()
+        kj, w = self._join_params()
+        empty = (np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64))
+        h, ok = self._rolling_hashes(codes[None, :], k=kj)
+        sel = self._minimizer_select(h, ok, w)
+        pos_seq = np.flatnonzero(sel[0])
+        if len(pos_seq) == 0 or len(self._join_h) == 0:
+            return empty
+        hs = h[0][pos_seq]
+        lo = np.searchsorted(self._join_h, hs, side="left")
+        hi = np.searchsorted(self._join_h, hs, side="right")
+        cnt = hi - lo
+        nz = cnt > 0
+        lo, cnt, pos_seq = lo[nz], cnt[nz], pos_seq[nz]
+        total = int(cnt.sum())
+        if total == 0:
+            return empty
+        if len(codes) + self.Lmax >= (1 << 34):
+            raise ValueError("corpus too large for the join key encoding")
+        # Expand hits to (table index, seq position) with two cumsums and
+        # dedup on a composite (probe, alignment) key built with a single
+        # gather: key = (p << 34) + (seq_pos - probe_pos + Lmax - 1),
+        # nonnegative since alignments reach back at most Lmax - 1.
+        pkey = ((self._join_p << np.int64(34)) - self._join_pos
+                + (self.Lmax - 1))
+        csum = np.cumsum(cnt)
+        step = np.ones(total, dtype=np.int64)
+        step[0] = lo[0]
+        step[csum[:-1]] = lo[1:] - lo[:-1] - cnt[:-1] + 1
+        idx = np.cumsum(step)
+        step[0] = pos_seq[0]
+        step[1:] = 0
+        step[csum[:-1]] = np.diff(pos_seq)
+        pos_rep = np.cumsum(step)
+        key = np.unique(pkey[idx] + pos_rep)
+        p = key >> np.int64(34)
+        a = (key & np.int64((1 << 34) - 1)) - (self.Lmax - 1)
+        return p, a
+
+    def _candidates_join(self, seq_codes):
+        """Phase 1 by k-mer join; returns predicate-passing (p, a)."""
+        n = len(seq_codes)
+        p, a = self._join_pairs(seq_codes)
+        lens = self.probe_lens[p].astype(np.int64)
+        ov = np.minimum(n, a + lens) - np.maximum(0, a)
+        thres = np.minimum(np.minimum(self.lcf_static, lens), n)
+        keep = (ov >= np.maximum(thres, self.k_seed)) & (thres > 0)
+        return p[keep], a[keep]
+
+    def _candidates_for_sequence(self, seq_codes):
+        """(probe_idx, alignment) candidate arrays for a sequence."""
+        n = len(seq_codes)
+        if (n + self.Lmax - 1) * len(self.probes) * self.Lmax \
+                <= self._HOST_PHASE1_MAX_CELLS:
+            return self._candidates_host(seq_codes)
+        return self._candidates_join(seq_codes)
+
+    def _verify_custom(self, sequence, seq_codes, cand_p, cand_a):
+        """Call the custom cover function per candidate anchor.
+
+        Mirrors the reference's per-(position, probe) invocation of
+        dynamically loaded models (reference catch/probe.py:1095-1098):
+        for every maximal run of >= k_seed consecutive matches, the
+        function is called once per k-mer anchor position within the
+        run, with the probe and `sequence` clipped to their overlap.
+        Returns flat (probe_idx, start, end) int64 arrays.
+        """
+        n = len(seq_codes)
+        L = self.Lmax
+        start = np.maximum(0, cand_a)
+        lens = self.probe_lens[cand_p]
+        ov = np.minimum(n, cand_a + lens) - start
+        j = np.arange(L)
+        seq_idx = start[:, None] + j[None, :]
+        seq_vals = np.where(seq_idx < n, seq_codes[np.minimum(seq_idx, n - 1)],
+                            0)
+        probe_idx = (start - cand_a)[:, None] + j[None, :]
+        probe_vals = np.take_along_axis(
+            self.probe_codes[cand_p], np.minimum(probe_idx, L - 1), axis=1)
+        valid = j[None, :] < ov[:, None]
+        match = (seq_vals == probe_vals) & (seq_vals > 0) & valid
+
+        fn = self.model.custom_fn
+        k = self.k_seed
+        out_p, out_s, out_e = [], [], []
+        for c in range(len(cand_p)):
+            p_i = int(cand_p[c])
+            probe = self.probes[p_i]
+            a = int(cand_a[c])
+            st = int(start[c])
+            o = int(ov[c])
+            if o < k:
+                continue
+            probe_clip_start = st - a
+            probe_seq = probe.seq_str[probe_clip_start:probe_clip_start + o]
+            m = match[c, :o]
+            # anchors: positions i where m[i:i+k] all True
+            run_ok = np.convolve(m.astype(np.int64),
+                                 np.ones(k, dtype=np.int64),
+                                 mode="valid") == k
+            anchor_positions = np.flatnonzero(run_ok)
+            if len(anchor_positions) == 0:
+                continue
+            subseq = sequence[st:st + o]
+            for i in anchor_positions:
+                r = fn(probe_seq, subseq, int(i), int(i) + k,
+                       int(lens[c]), n)
+                if r is None:
+                    continue
+                out_p.append(p_i)
+                out_s.append(r[0] + st)
+                out_e.append(r[1] + st)
+        return (np.array(out_p, dtype=np.int64),
+                np.array(out_s, dtype=np.int64),
+                np.array(out_e, dtype=np.int64))
+
+    def _scan_one_sequence(self, sequence):
+        """The custom model's spans in one sequence: flat (probe_idx,
+        start, end) int64 arrays."""
+        if len(sequence) < self.k_seed:
+            return tuple(np.empty(0, dtype=np.int64) for _ in range(3))
+        seq_codes = self.alphabet.encode(encode.encode_bytes(sequence))
+        cand_p, cand_a = self._candidates_for_sequence(seq_codes)
+        self.stats["candidates"] += len(cand_p)
+        return self._verify_custom(sequence, seq_codes, cand_p, cand_a)
+
+    def _scan_custom(self, sequences):
+        """find_probe_covers_flat's arrays from the host scan, one
+        sequence at a time."""
+        out = [[], [], [], []]
+        for i, sequence in enumerate(sequences):
+            p_idx, s, e = self._scan_one_sequence(sequence)
+            for part, x in zip(out, (p_idx, np.full(len(p_idx), i), s, e)):
+                part.append(x.astype(np.int64))
+        return tuple(np.concatenate(x) for x in out)
+
+    # ------------------------------------------------------------------
     # Public API
     # ------------------------------------------------------------------
 
@@ -258,19 +452,24 @@ class ProbeSearcher:
         """Unmerged cover spans of every probe across many sequences.
 
         One corpus-wide scan on the searcher's device
-        (ops/scan_sparse.scan_corpus_sparse).  Returns flat int64 numpy
-        arrays (probe_idx, seq_idx, start, end) in per-sequence local
-        coordinates; spans are NOT merged (consumers merge per (probe,
-        universe), which commutes with cover extension).  probe_idx
-        indexes self.probes (the deduplicated probe list).
+        (ops/scan_sparse.scan_corpus_sparse), or for a model with
+        custom_fn the host scan, one sequence at a time.  Returns flat
+        int64 numpy arrays (probe_idx, seq_idx, start, end) in
+        per-sequence local coordinates; spans are NOT merged (consumers
+        merge per (probe, universe), which commutes with cover
+        extension).  probe_idx indexes self.probes (the deduplicated
+        probe list).
         """
         from catch_tpu_torch.ops import scan_sparse
 
-        if self.device is None:
+        custom = self.model.custom_fn is not None
+        if self.device is None and not custom:
             raise ValueError("the span scan needs the searcher's device: "
                              "construct ProbeSearcher(..., device=...)")
         if self.empty or not sequences:
             return tuple(np.empty(0, dtype=np.int64) for _ in range(4))
+        if custom:
+            return self._scan_custom(sequences)
         return scan_sparse.scan_corpus_sparse(self, sequences, self.device)
 
     def _group_spans(self, p_idx, span_start, span_end, merge_overlapping):

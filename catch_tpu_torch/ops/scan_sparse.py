@@ -446,8 +446,8 @@ def verify_args(searcher):
     if model.custom_fn is not None or searcher.K_static is None:
         raise NotImplementedError(
             "the span scan runs the default cover model with a fixed "
-            "mismatch count only; custom cover functions are not ported "
-            "(ROADMAP queue 1, item 12)")
+            "mismatch count only; a custom cover function is scanned on "
+            "the host (ProbeSearcher.find_probe_covers_flat)")
     k_seed = int(searcher.k_seed)
     island = model.island_of_exact_match
     return dict(K=int(searcher.K_static), k_seed=k_seed,

@@ -1,7 +1,10 @@
-# Copied from catch_tpu/ops/set_cover.py (SetCoverInstance, _solve_host_lazy, _interval_difference, _merge_sorted_intervals, _merge_by_group, build_instance_from_cover_arrays).
+# Copied from catch_tpu/ops/set_cover.py (SetCoverInstance, build_instance, _solve_host, _solve_host_lazy, _interval_difference, _merge_sorted_intervals, _merge_by_group, build_instance_from_cover_arrays, approx_multiuniverse, approx).
 """Greedy weighted partial multi-universe set cover, on the host and on
 the device.
 
+build_instance canonicalizes the reference's dict-of-sets input (used
+by approx and approx_multiuniverse, which the dominating-set filter
+calls), and build_instance_from_cover_arrays the scan's flat spans.
 Two routes take an instance to its pick order.  The default reads the
 merged instance back (ops/scan_instance.instance_to_host) and runs the
 lazy greedy solver here in numpy; it touches only the few sets whose
@@ -40,15 +43,21 @@ attribute `launches`; the wrappers are registered in
 scan_instance.KERNELS.
 """
 
+import logging
+
 import numpy as np
 import torch
 
 from catch_tpu_torch import _build
 from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.ops import scan_instance as si
+from catch_tpu_torch.utils import intervals as intervals_mod
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["SetCoverInstance", "solve_instance", "solve_boundary_instance",
-           "check_instance_axis",
+           "check_instance_axis", "build_instance", "approx_multiuniverse",
+           "approx",
            "assembled_instance", "build_instance_from_cover_arrays",
            "init_covered", "greedy_steps_v2", "greedy_steps_v1",
            "initial_state"]
@@ -88,6 +97,253 @@ class SetCoverInstance:
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
+
+
+def _runs_to_intervals(sorted_vals):
+    """Convert a sorted int array to half-open intervals of consecutive runs."""
+    if len(sorted_vals) == 0:
+        return np.empty((0, 2), dtype=np.int64)
+    breaks = np.flatnonzero(np.diff(sorted_vals) != 1)
+    starts = np.concatenate(([0], breaks + 1))
+    ends = np.concatenate((breaks, [len(sorted_vals) - 1]))
+    return np.stack([sorted_vals[starts], sorted_vals[ends] + 1], axis=1)
+
+
+def build_instance(sets, costs=None, universe_p=None, ranks=None,
+                   use_intervalsets=False):
+    """Canonicalize the reference-style dict inputs into flat arrays.
+
+    Args:
+        sets: dict set_id -> dict universe_id -> (set | array | list |
+            IntervalSet | single (start, end) tuple)
+        costs / universe_p / ranks: as in the reference API
+        use_intervalsets: values are IntervalSets / single-interval
+            tuples over ints; their coordinates are used directly
+            (per-universe, offset to the universe's global slice)
+
+    Returns:
+        (instance, set_id_list): instance arrays + original set ids in
+        dense order (sorted for determinism).
+    """
+    set_id_list = sorted(sets.keys(), key=_sort_key)
+    universe_ids = set()
+    for sbu in sets.values():
+        universe_ids.update(sbu.keys())
+    universe_id_list = sorted(universe_ids, key=_sort_key)
+    u_index = {u: i for i, u in enumerate(universe_id_list)}
+    nU = len(universe_id_list)
+
+    if costs is None:
+        cost = np.ones(len(set_id_list), dtype=np.float32)
+    else:
+        for c in costs.values():
+            if c < 0:
+                raise ValueError("All costs must be nonnegative")
+        for sid in set_id_list:
+            if sid not in costs:
+                raise ValueError(f"costs is missing a value for set {sid}")
+        cost = np.array([costs[sid] for sid in set_id_list], dtype=np.float32)
+
+    if ranks is None:
+        rank_arr = np.ones(len(set_id_list), dtype=np.int64)
+    else:
+        for sid in set_id_list:
+            if sid not in ranks:
+                raise ValueError(f"ranks is missing a value for set {sid}")
+        rank_arr = np.array([ranks[sid] for sid in set_id_list],
+                            dtype=np.int64)
+    rank_vals = np.unique(rank_arr)
+    rank_idx = np.searchsorted(rank_vals, rank_arr).astype(np.int32)
+
+    # Per-universe interval lists in local (within-universe) coordinates.
+    per_set_ivls = []  # list of (set_idx, univ_idx, (k,2) local intervals)
+    if use_intervalsets:
+        # Coordinates are ints used directly; per universe record min/max
+        # to build a compact global slice.
+        u_min = np.full(nU, np.iinfo(np.int64).max, dtype=np.int64)
+        u_max = np.full(nU, np.iinfo(np.int64).min, dtype=np.int64)
+        for si, sid in enumerate(set_id_list):
+            for uid, s in sets[sid].items():
+                ui = u_index[uid]
+                if isinstance(s, tuple):
+                    arr = np.array([s], dtype=np.int64)
+                else:
+                    arr = np.asarray(
+                        [list(i) for i in s.intervals], dtype=np.int64
+                    ).reshape(-1, 2)
+                if arr.shape[0] == 0:
+                    continue
+                u_min[ui] = min(u_min[ui], int(arr[:, 0].min()))
+                u_max[ui] = max(u_max[ui], int(arr[:, 1].max()))
+                per_set_ivls.append((si, ui, arr))
+        base = np.where(u_min > u_max, 0, u_min)
+        span = np.maximum(u_max - base, 0)
+        per_set_ivls = [(si, ui, a - base[ui]) for (si, ui, a) in per_set_ivls]
+        u_span = span
+    else:
+        # Arbitrary hashable elements: densify per universe by sorted
+        # element order so consecutive values form intervals.
+        u_elements = [dict() for _ in range(nU)]
+        collected = []
+        for si, sid in enumerate(set_id_list):
+            for uid, s in sets[sid].items():
+                ui = u_index[uid]
+                vals = list(s)
+                for v in vals:
+                    u_elements[ui][v] = None
+                collected.append((si, ui, vals))
+        u_rank = []
+        for ui in range(nU):
+            ordered = sorted(u_elements[ui].keys(), key=_sort_key)
+            u_rank.append({v: i for i, v in enumerate(ordered)})
+        u_span = np.array([len(r) for r in u_rank], dtype=np.int64)
+        for si, ui, vals in collected:
+            if not vals:
+                continue
+            dense = np.unique(
+                np.array([u_rank[ui][v] for v in vals], dtype=np.int64))
+            per_set_ivls.append((si, ui, _runs_to_intervals(dense)))
+
+    offsets = np.zeros(nU + 1, dtype=np.int64)
+    np.cumsum(u_span, out=offsets[1:])
+    u_len = int(offsets[-1])
+
+    # Merge intervals per (set, universe) and flatten with dense pair ids.
+    pair_key = {}
+    set_of_pair, univ_of_pair = [], []
+    ivl_start, ivl_end, pair_of_ivl = [], [], []
+    for si, ui, arr in per_set_ivls:
+        if arr.shape[0] == 0:
+            continue
+        merged = intervals_mod.merge_overlapping(
+            [(int(a), int(b)) for a, b in arr])
+        key = (si, ui)
+        if key not in pair_key:
+            pair_key[key] = len(set_of_pair)
+            set_of_pair.append(si)
+            univ_of_pair.append(ui)
+        pid = pair_key[key]
+        for a, b in merged:
+            ivl_start.append(a + offsets[ui])
+            ivl_end.append(b + offsets[ui])
+            pair_of_ivl.append(pid)
+
+    ivl_start = np.array(ivl_start, dtype=np.int64)
+    ivl_end = np.array(ivl_end, dtype=np.int64)
+    pair_of_ivl = np.array(pair_of_ivl, dtype=np.int32)
+    set_of_pair = np.array(set_of_pair, dtype=np.int32)
+    univ_of_pair = np.array(univ_of_pair, dtype=np.int32)
+
+    # Universe sizes = number of elements in the union of all intervals
+    # per universe (for intervalsets mode the span may exceed the union).
+    u_size = np.zeros(nU, dtype=np.int64)
+    if len(ivl_start):
+        in_universe = _union_indicator(ivl_start, ivl_end, u_len)
+        pos_univ = np.searchsorted(offsets, np.arange(u_len), side="right") - 1
+        u_size = np.bincount(pos_univ, weights=in_universe,
+                             minlength=nU).astype(np.int64)
+
+    if universe_p is None:
+        p_arr = np.ones(nU, dtype=np.float64)
+    else:
+        for p in universe_p.values():
+            if p < 0 or p > 1:
+                raise ValueError(
+                    "The coverage fraction (p) of each universe must be "
+                    "in [0,1]")
+        for uid in universe_id_list:
+            if uid not in universe_p:
+                raise ValueError(
+                    f"universe_p is missing a value for universe {uid}")
+        p_arr = np.array([universe_p[uid] for uid in universe_id_list],
+                         dtype=np.float64)
+    # Reference floor semantics: int(len - p*len)
+    # (reference catch/utils/set_cover.py:362-373)
+    can_uncover = (u_size - p_arr * u_size).astype(np.int64)
+
+    inst = SetCoverInstance(
+        n_sets=len(set_id_list), n_universes=nU, u_size=u_size,
+        can_uncover=can_uncover, ivl_start=ivl_start, ivl_end=ivl_end,
+        pair_of_ivl=pair_of_ivl, set_of_pair=set_of_pair,
+        univ_of_pair=univ_of_pair, cost=cost, rank_idx=rank_idx,
+        n_rank_vals=len(rank_vals), u_len=u_len,
+        pos_univ_offsets=offsets)
+    return inst, set_id_list
+
+
+def _sort_key(x):
+    """Deterministic ordering for possibly-mixed-type hashables."""
+    return (type(x).__name__, x if isinstance(x, (int, float, str, tuple))
+            else repr(x))
+
+
+def _union_indicator(starts, ends, n):
+    delta = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(delta, starts, 1)
+    np.add.at(delta, ends, -1)
+    return (np.cumsum(delta[:n]) > 0).astype(np.int64)
+
+
+def _solve_host(inst):
+    """Full-rescan greedy solver: every step rescores every set (same
+    dtypes and tie-breaking as the device steps).  The reference that
+    _solve_host_lazy's pick order is held to; solve_instance runs the
+    lazy solver."""
+    U = inst.u_len
+    M = len(inst.ivl_start)
+    nP = len(inst.set_of_pair)
+    S = inst.n_sets
+    nU = inst.n_universes
+    starts = inst.ivl_start.astype(np.int64)
+    ends = inst.ivl_end.astype(np.int64)
+    pair_of_ivl = inst.pair_of_ivl
+    set_of_pair = inst.set_of_pair
+    univ_of_pair = inst.univ_of_pair
+    cost = inst.cost
+    rank_idx = inst.rank_idx
+    can_uncover = inst.can_uncover.astype(np.int64)
+
+    covered = ~(_union_indicator(starts, ends, U).astype(bool))
+    len_u = inst.u_size.astype(np.int64).copy()
+    in_cover = np.zeros(S, dtype=bool)
+    order = []
+    cur_rank = 0
+    while True:
+        need_u = np.maximum(len_u - can_uncover, 0)
+        if not np.any(need_u > 0):
+            break
+        prefix = np.zeros(U + 1, dtype=np.int64)
+        np.cumsum(~covered, out=prefix[1:])
+        new_ivl = prefix[ends] - prefix[starts]
+        pair_new = np.bincount(pair_of_ivl, weights=new_ivl,
+                               minlength=nP).astype(np.int64)
+        pair_capped = np.minimum(pair_new, need_u[univ_of_pair])
+        score = np.bincount(set_of_pair, weights=pair_capped,
+                            minlength=S).astype(np.int64)
+        elig = (~in_cover) & (rank_idx == cur_rank) & (score > 0)
+        if not np.any(elig):
+            cur_rank += 1
+            if cur_rank >= inst.n_rank_vals:
+                break
+            continue
+        ratio = np.where(
+            elig,
+            cost.astype(np.float32)
+            / np.maximum(score, 1).astype(np.float32),
+            np.float32(np.inf))
+        chosen = int(np.argmin(ratio))
+        msk = set_of_pair[pair_of_ivl] == chosen
+        if np.any(msk):
+            cov = _union_indicator(starts[msk], ends[msk], U).astype(bool)
+            covered |= cov
+        dec = np.bincount(univ_of_pair,
+                          weights=np.where(set_of_pair == chosen,
+                                           pair_new, 0),
+                          minlength=nU).astype(np.int64)
+        len_u -= dec
+        in_cover[chosen] = True
+        order.append(chosen)
+    return np.array(order, dtype=np.int32)
 
 
 def _solve_host_lazy(inst):
@@ -915,3 +1171,48 @@ def solve_instance(inst, force_device=False, device=None, mesh=None):
 
 si.KERNELS.update(init_covered=init_covered, greedy_v2=greedy_steps_v2,
                   greedy_v1=greedy_steps_v1)
+
+
+# ----------------------------------------------------------------------
+# Reference-parity host API
+# ----------------------------------------------------------------------
+
+def approx_multiuniverse(sets, costs=None, universe_p=None, ranks=None,
+                         use_arrays=False, use_intervalsets=False,
+                         logger_prefix=""):
+    """Approximate the multi-universe weighted partial set cover.
+
+    API parity with reference catch/utils/set_cover.py:147-615; the
+    instance is solved by solve_instance (the host lazy solver).
+    `use_arrays` is accepted for compatibility (arrays and sets
+    canonicalize the same way here).
+
+    Returns:
+        set of chosen set identifiers
+    """
+    if use_arrays and use_intervalsets:
+        raise ValueError("Cannot use both arrays and IntervalSets")
+    inst, set_id_list = build_instance(
+        sets, costs=costs, universe_p=universe_p, ranks=ranks,
+        use_intervalsets=use_intervalsets)
+    chosen = solve_instance(inst)
+    if ranks is not None and len(chosen):
+        ranks_arr = np.array([ranks[set_id_list[i]] for i in chosen])
+        min_rank = min(ranks.values())
+        n_high = int(np.sum(ranks_arr > min_rank))
+        if n_high:
+            logger.warning(
+                "%sThe solution chose %d sets with rank above the minimum",
+                logger_prefix, n_high)
+    return {set_id_list[i] for i in chosen}
+
+
+def approx(sets, costs=None, p=1.0):
+    """Approximate the weighted partial set cover (single universe).
+
+    API parity with reference catch/utils/set_cover.py:14-144.
+    """
+    if p < 0 or p > 1:
+        raise ValueError("p must be in [0,1]")
+    mu_sets = {sid: {0: s} for sid, s in sets.items()}
+    return approx_multiuniverse(mu_sets, costs=costs, universe_p={0: p})

@@ -135,6 +135,25 @@ Phases (any failure exits non-zero and prints no result line):
      near each edge the merged rows must equal a scan of the window
      edge +- 1,000,000 alone, and some must cross the edge; wall
      seconds, pieces, pairs and peak device memory.
+ 24. the host filters, custom functions and design_naively, each against
+     a golden that catch_tpu made on the CPU
+     (tests/data/golden/make_host_goldens.py): (i) ebola175 as in phase 5
+     with --add-adapters --add-reverse-complements, with the launch
+     counts set to 0 just before: the FASTA must equal
+     ebola175_m2_adapters_rc.fasta byte for byte, the adapter votes
+     must have launched expand_join and verify_spans (the design has no
+     other span scan), and the forward probes without their adapters
+     must be torch_ebola175_m2.fasta's; (ii) the same flags with
+     --filter-from-fasta on (i)'s forward probes without adapters and
+     --skip-set-cover: the same records as (i), and no design-scan
+     kernel launched; (iii) ebola5 -pl 100 with --custom-hybridization-fn
+     on CUSTOM_FN_SRC: equal to ebola5_custom_fn.fasta, and no kernel
+     launched (the model routes to the host scan); (iv)
+     catch_tpu_torch.cli.design_naively on ebola5 with -nrf 2 60 and with
+     -dsf 2 60, --print-analysis, in a child process (naive_command): the
+     output (probe count and table) must equal
+     ebola5_naive_{nrf,dsf}_2_60.txt.  Wall seconds of each, and the
+     filter and span phases of (i).
 
 Each phase prints its wall seconds as it ends.  The line before the
 last is the card's name and power limit; the one before it a JSON
@@ -195,6 +214,48 @@ MESH_PLACES = 4
 
 # bench.py's solver-throughput instance (bench.py:178-198).
 SOLVER_N_SETS, SOLVER_N_UNIV, SOLVER_U_LEN = 100_000, 128, 8192
+
+# Phase 24's custom hybridization function, written to a file and loaded
+# by --custom-hybridization-fn (tests/data/golden/make_host_goldens.py
+# writes the same file for catch_tpu's golden).
+CUSTOM_FN_NAME = "covers_within_two"
+CUSTOM_FN_SRC = '''"""A custom hybridization model for chip_smoke phase 24."""
+
+
+def covers_within_two(probe_seq, sequence, kmer_start, kmer_end,
+                      full_probe_len, full_sequence_len):
+    """Covers the whole overlap when it is at least 60 nt long and holds
+    at most 2 mismatches."""
+    if len(sequence) < 60:
+        return None
+    mismatches = sum(a != b for a, b in zip(probe_seq, sequence))
+    return (0, len(sequence)) if mismatches <= 2 else None
+'''
+
+
+def write_custom_fn():
+    """Phase 24's custom function file; returns its path."""
+    path = os.path.join(WORK, "custom_hybridization_fn.py")
+    with open(path, "w") as f:
+        f.write(CUSTOM_FN_SRC)
+    return path
+
+
+def naive_command(package, argv):
+    """design_naively of `package` in a child process, with numpy's
+    global generator seeded and PYTHONHASHSEED fixed: its redundancy
+    test samples k-mers from that generator and takes one k-mer of a set
+    of strings, whose order follows the string hash.  Returns (argv,
+    environment) for subprocess.run in WORK, where the dataset is named
+    by its file name alone (the analysis table prints the name)."""
+    code = (f"import sys, numpy; from {package}.cli import design_naively"
+            " as d; numpy.random.seed(0); "
+            "d.main(d.init_and_parse_args(sys.argv[1:]))")
+    env = dict(os.environ, PYTHONHASHSEED="0")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    return [sys.executable, "-c", code] + list(argv), env
+
 
 # The H100's published rates (SXM, 700 W): device memory 3.35 TB/s, and
 # 67 T operations/s outside the tensor cores, the rate used for these
@@ -1786,6 +1847,117 @@ def long_chromosome(torch, si, profiling, device):
     torch.cuda.empty_cache()
 
 
+def fasta_in_order(path):
+    """(header, sequence) records of a FASTA file in file order."""
+    recs = []
+    for line in open(path):
+        line = line.strip()
+        if line.startswith(">"):
+            recs.append([line, ""])
+        elif line:
+            recs[-1][1] += line
+    return [tuple(r) for r in recs]
+
+
+def host_modules(torch, si, profiling, in175):
+    """Phase 24: the host filters, custom functions and design_naively
+    against catch_tpu's goldens (module docstring)."""
+    flags = ["-pl", "100", "-m", "2", "-l", "60", "-e", "50", "--device",
+             "cuda", "--add-adapters", "--add-reverse-complements"]
+    span_kernels = ["expand_join", "verify_spans"]
+
+    # (i) adapters and reverse complements.
+    out1 = os.path.join(WORK, "ebola175_m2_adapters_rc.fasta")
+    _, wall, launches, peak = counted(torch, si, profiling, lambda: design(
+        [in175, "-o", out1] + flags))
+    if not same_bytes(out1, os.path.join(GOLDEN,
+                                         "ebola175_m2_adapters_rc.fasta")):
+        fail("phase 24 (i): the adapter and rc design differs from "
+             "ebola175_m2_adapters_rc.fasta")
+    forward = [(h, s) for h, s in fasta_in_order(out1)
+               if h.endswith("| from target sequence")]
+    plain = {s for _, s in fasta_records(
+        os.path.join(GOLDEN, "torch_ebola175_m2.fasta"))}
+    if {s[20:-20] for _, s in forward} != plain or \
+            2 * len(forward) != len(fasta_in_order(out1)):
+        fail("phase 24 (i): without adapters and reverse complements the "
+             "probes are not torch_ebola175_m2.fasta's")
+    print(f"phase 24 (i), ebola175 m2 with adapters and reverse "
+          f"complements: {2 * len(forward)} probes, equal to golden; "
+          f"without them equal to torch_ebola175_m2.fasta; wall {wall:.3f} "
+          f"s; peak allocated device memory {peak / 2**20:.1f} MiB",
+          flush=True)
+    print_phases(profiling, ("candidate", "filter", "set_cover", "scan",
+                             "span"))
+    print("launches of the adapter votes: " + ", ".join(
+        f"{k} {launches[k]}" for k in span_kernels), flush=True)
+    print(f"launches in the adapter design: {launches}", flush=True)
+    require_launched(launches, span_kernels, "the adapter votes")
+    require_launched(launches, DESIGN_KERNELS, "the adapter design")
+
+    # (ii) the same design re-processed without its set cover.
+    keep = os.path.join(WORK, "ebola175_m2_forward.fasta")
+    with open(keep, "w") as f:
+        for h, s in forward:
+            f.write(f"{h}\n{s[20:-20]}\n")
+    out2 = os.path.join(WORK, "ebola175_m2_skip_set_cover.fasta")
+    _, wall, launches, _ = counted(torch, si, profiling, lambda: design(
+        [in175, "-o", out2, "--filter-from-fasta", keep,
+         "--skip-set-cover"] + flags))
+    if fasta_records(out2) != fasta_records(out1):
+        fail("phase 24 (ii): --filter-from-fasta --skip-set-cover differs "
+             "from (i)")
+    if any(launches[k] for k in DESIGN_KERNELS):
+        fail(f"phase 24 (ii): a design-scan kernel launched without the "
+             f"set cover: {launches}")
+    require_launched(launches, span_kernels, "the adapter votes of (ii)")
+    print(f"phase 24 (ii), --filter-from-fasta --skip-set-cover: the "
+          f"records of (i); wall {wall:.3f} s; launches of the adapter "
+          "votes: " + ", ".join(f"{k} {launches[k]}" for k in span_kernels),
+          flush=True)
+    print_phases(profiling, ("filter",))
+
+    # (iii) a custom hybridization function, on the host.
+    out3 = os.path.join(WORK, "ebola5_custom_fn.fasta")
+    pb, wall, launches, _ = counted(torch, si, profiling, lambda: design(
+        [write_subset(5), "-o", out3, "-pl", "100",
+         "--custom-hybridization-fn", write_custom_fn(), CUSTOM_FN_NAME,
+         "--device", "cuda"]))
+    if not same_bytes(out3, os.path.join(GOLDEN, "ebola5_custom_fn.fasta")):
+        fail("phase 24 (iii): the custom-function design differs from "
+             "ebola5_custom_fn.fasta")
+    if any(launches.values()):
+        fail(f"phase 24 (iii): the custom model launched kernels: "
+             f"{launches}")
+    stats = pb.filters[-1].last_run_stats
+    print(f"phase 24 (iii), ebola5 with --custom-hybridization-fn: "
+          f"{len(pb.final_probes)} probes, equal to golden; no kernel "
+          f"launched; wall {wall:.3f} s; {stats['candidates_evaluated']} "
+          f"candidates; scan {stats['scan_seconds']:.3f} s, solve "
+          f"{stats['solve_seconds']:.3f} s", flush=True)
+
+    # (iv) design_naively, in a child process (naive_command).
+    for flag in ("-nrf", "-dsf"):
+        argv, env = naive_command("catch_tpu_torch", [
+            "ebola5.fasta", flag, "2", "60", "--print-analysis", "--device",
+            "cuda"])
+        t0 = time.time()
+        p = subprocess.run(argv, env=env, cwd=WORK, capture_output=True,
+                           text=True, timeout=300)
+        wall = time.time() - t0
+        if p.returncode != 0:
+            fail(f"phase 24 (iv): design_naively {flag} exited "
+                 f"{p.returncode}: {p.stderr}")
+        name = f"ebola5_naive_{flag[1:]}_2_60.txt"
+        with open(os.path.join(GOLDEN, name)) as f:
+            if p.stdout != f.read():
+                fail(f"phase 24 (iv): design_naively {flag} 2 60 differs "
+                     f"from {name}")
+        print(f"phase 24 (iv), design_naively {flag} 2 60: "
+              f"{p.stdout.splitlines()[0]}, table equal to golden; wall "
+              f"{wall:.3f} s (a child process)", flush=True)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "catch_tpu_torch")):
         fail("catch_tpu_torch/ is not beside chip_smoke.py; run it from the "
@@ -2016,6 +2188,10 @@ def main():
     # Phase 23: one chromosome longer than a corpus block, scan only.
     long_chromosome(torch, si, profiling, device)
     clock.done(23)
+
+    # Phase 24: the host filters, custom functions and design_naively.
+    host_modules(torch, si, profiling, in175)
+    clock.done(24)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -149,19 +149,75 @@ def test_port_runs_without_jax(tmp_path, block, mesh):
     assert _records(str(tmp_path / "p.fasta"))
 
 
+# The flags of catch_tpu's CLI that the port refuses, and for each flag
+# it serves, the filter (or the genome sampling) the flag must reach.
+_NCBI = ("--write-taxid-acc", "--ncbi-api-key")
+_SERVED = {
+    "--add-adapters": "AdapterFilter",
+    "--filter-polya": "PolyAFilter",
+    "--skip-set-cover": None,
+    "--add-reverse-complements": "ReverseComplementFilter",
+    "--custom-hybridization-fn": "SetCoverFilter",
+    "--custom-hybridization-fn-tolerant": "SetCoverFilter",
+    "--filter-from-fasta": "FastaFilter",
+    "--expand-n": "NExpansionFilter",
+    "--limit-target-genomes-randomly-with-replacement": None,
+}
+
+
 @pytest.mark.parametrize("argv", [
-    ["--custom-hybridization-fn", "m.py", "f"], ["--add-adapters"],
+    ["--write-taxid-acc", "d"], ["--ncbi-api-key", "k"], ["--add-adapters"],
     ["--filter-polya", "10", "2"],
     ["--skip-set-cover"],
     ["--add-reverse-complements"],
+    ["--custom-hybridization-fn", "{fn}", "f"],
+    ["--custom-hybridization-fn-tolerant", "{fn}", "f"],
+    ["--filter-from-fasta", "{fasta}"], ["--expand-n", "2"],
+    ["--limit-target-genomes-randomly-with-replacement", "2"],
 ])
-def test_cli_refuses_unported_flags(argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        tdesign.init_and_parse_args(["in.fasta", "-o", "out.fasta"] + argv)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not supported by catch_tpu_torch" in err
-    assert argv[0] in err
+def test_cli_refuses_unported_flags(argv, capsys, tmp_path, monkeypatch):
+    """The two NCBI flags are refused; every other flag of catch_tpu's CLI
+    parses and reaches its filter."""
+    if argv[0] in _NCBI:
+        with pytest.raises(SystemExit) as e:
+            tdesign.init_and_parse_args(["in.fasta", "-o", "out.fasta"]
+                                        + argv)
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "not supported by catch_tpu_torch" in err
+        assert argv[0] in err
+        return
+    fn = tmp_path / "fn.py"
+    fn.write_text("def f(*args):\n    return None\n")
+    fasta = _subset(tmp_path, 3)
+    argv = [a.format(fn=fn, fasta=fasta) for a in argv]
+    seen = {}
+
+    class Designer:
+        def __init__(self, genomes, filters, **kw):
+            seen.update(genomes=genomes, filters=filters)
+            self.final_probes = []
+
+        def design(self):
+            pass
+
+    monkeypatch.setattr(tdesign.probe_designer, "ProbeDesigner", Designer)
+    _port_design([fasta, "-o", str(tmp_path / "o.fasta"), "--device",
+                  "cpu"] + argv)
+    names = [type(f).__name__ for f in seen["filters"]]
+    want = _SERVED[argv[0]]
+    if want is not None:
+        assert want in names
+    scf = [f for f in seen["filters"] if type(f).__name__ ==
+           "SetCoverFilter"]
+    if argv[0] == "--skip-set-cover":
+        assert not scf
+    elif argv[0] == "--custom-hybridization-fn":
+        assert scf[0].model.custom_fn.__name__ == "f"
+    elif argv[0] == "--custom-hybridization-fn-tolerant":
+        assert scf[0].tolerant_model.custom_fn.__name__ == "f"
+    elif argv[0] == "--limit-target-genomes-randomly-with-replacement":
+        assert [len(g) for g in seen["genomes"]] == [2]
 
 
 def test_cuda_without_cuda_raises(monkeypatch, tmp_path):
@@ -175,16 +231,19 @@ def test_cuda_without_cuda_raises(monkeypatch, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SetCoverFilter(2, 60, custom_cover_range_fn=("m.py", "f"),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SetCoverFilter(2, 60, custom_cover_range_tolerant_fn=("m.py", "f"),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Analyzer([], 2, 60, [[]], custom_cover_range_fn=("m.py", "f"),
-                 device="cpu")
+def test_unported_features_raise(tmp_path):
+    """Custom cover functions load (they run on the host); a custom model
+    that reaches the design scan still raises."""
+    path = tmp_path / "m.py"
+    path.write_text("def f(*args):\n    return None\n")
+    m = (str(path), "f")
+    assert SetCoverFilter(2, 60, custom_cover_range_fn=m,
+                          device="cpu").model.custom_fn.__name__ == "f"
+    assert SetCoverFilter(
+        2, 60, custom_cover_range_tolerant_fn=m,
+        device="cpu").tolerant_model.custom_fn.__name__ == "f"
+    assert Analyzer([], 2, 60, [[]], custom_cover_range_fn=m,
+                    device="cpu").model.custom_fn.__name__ == "f"
     probes = [Probe("ACGT" * 25)]
     searcher = ProbeSearcher(probes, CoverModel(None, 60))
     assert searcher.K_static is None
