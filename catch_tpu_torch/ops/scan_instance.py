@@ -1157,12 +1157,13 @@ def scan_to_boundary_instance(searcher, sequences, seq_univ, chrom_off,
                    + np.asarray(seq_len, dtype=np.int64)).max()) \
         if len(sequences) else 0
     _mark(searcher, device, "setup", t0)
-    dev = _run_pipeline(searcher, places, probes, corpus, rows_per_block,
-                        kj, s, nU, universe_p, pack_width(max_pos),
-                        dict(K=K, k_seed=k_seed, lcf=int(searcher.lcf_static),
-                             seed_req=seed_req,
-                             fast_ok=bool(searcher.fast_ok),
-                             ext=int(cover_extension), nU=nU))
+    with profiling.maybe_trace("scan_instance", device):
+        dev = _run_pipeline(
+            searcher, places, probes, corpus, rows_per_block, kj, s, nU,
+            universe_p, pack_width(max_pos),
+            dict(K=K, k_seed=k_seed, lcf=int(searcher.lcf_static),
+                 seed_req=seed_req, fast_ok=bool(searcher.fast_ok),
+                 ext=int(cover_extension), nU=nU))
     return dev, perm
 
 

@@ -45,6 +45,7 @@ import torch
 from catch_tpu_torch import _build
 from catch_tpu_torch.ops import encode
 from catch_tpu_torch.ops import scan_instance as si
+from catch_tpu_torch.utils import profiling
 
 __all__ = ["scan_corpus_sparse", "scan_spans", "expand_join",
            "verify_spans", "verify_spans_sharded"]
@@ -361,7 +362,8 @@ def join_runs(searcher, mega_codes):
     """The host join: (lo, cnt, pos) int64 numpy arrays, one entry per
     selected corpus position whose hash is in the join table: its run
     [lo, lo + cnt) of table rows, and the position."""
-    pos_seq, hs = _join_corpus(searcher, mega_codes)
+    with profiling.maybe_trace("cover_scan_join"):
+        pos_seq, hs = _join_corpus(searcher, mega_codes)
     lo = np.searchsorted(searcher._join_h, hs, side="left")
     hi = np.searchsorted(searcher._join_h, hs, side="right")
     cnt = (hi - lo).astype(np.int64)
@@ -480,16 +482,17 @@ def scan_spans(searcher, sequences, device):
         return empty
 
     places = si.scan_places(searcher, device)
-    if len(places) > 1:
-        # each place verifies a block of the candidates against its own
-        # replica of the corpus and the probe rows
-        sp_p, sp_s, sp_e = verify_spans_sharded(
-            [(_put(mega, p), _put(searcher.probe_codes, p)) for p in places],
-            *cand, **vargs)
-    else:
-        sp_p, sp_s, sp_e = verify_spans(
-            _put(mega, device), _put(searcher.probe_codes, device), *cand,
-            **vargs)
+    with profiling.maybe_trace("cover_scan_verify", device):
+        if len(places) > 1:
+            # each place verifies a block of the candidates against its
+            # own replica of the corpus and the probe rows
+            sp_p, sp_s, sp_e = verify_spans_sharded(
+                [(_put(mega, p), _put(searcher.probe_codes, p))
+                 for p in places], *cand, **vargs)
+        else:
+            sp_p, sp_s, sp_e = verify_spans(
+                _put(mega, device), _put(searcher.probe_codes, device),
+                *cand, **vargs)
     sidx = torch.clamp(torch.searchsorted(ends_t, sp_s, side="right"),
                        max=ends_t.numel() - 1)
     base = starts_t[sidx]

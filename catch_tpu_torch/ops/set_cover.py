@@ -52,6 +52,7 @@ from catch_tpu_torch import _build
 from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.ops import scan_instance as si
 from catch_tpu_torch.utils import intervals as intervals_mod
+from catch_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -1006,29 +1007,35 @@ def _dispatch_bound(n_sets, n_rank_vals):
     return 2 + (n_sets + n_rank_vals) // max(1, _STEPS_PER_DISPATCH // 2)
 
 
-def _run_dispatches(step_fn, state, consts, bound):
+def _run_dispatches(step_fn, state, consts, bound, max_dispatches=None):
     """Dispatch step_fn _STEPS_PER_DISPATCH steps at a time until the
     stop flag; returns the picks in order (int32).  Without an order in
     the state, each dispatch reads back its step vectors; with one, only
     the stop flag comes back until the end.  Reaching `bound` without a
-    stop raises."""
+    stop raises; `max_dispatches` below it cuts the solve short and
+    returns the picks made so far.  The loop is the set_cover_solve
+    trace region (utils/profiling.maybe_trace)."""
     order = []
-    for _ in range(bound):
-        state, chosens, picks = step_fn(state, consts, _STEPS_PER_DISPATCH)
-        if "order" not in state:
-            keep = picks.cpu().numpy()
-            order.extend(chosens.cpu().numpy()[keep].tolist())
-        if bool(state["stop"]):
-            break
-    else:
-        raise RuntimeError(f"the device solver took {bound} dispatches "
-                           "without reaching its stop")
+    cut = max_dispatches is not None and max_dispatches < bound
+    with profiling.maybe_trace("set_cover_solve", state["covered"].device):
+        for _ in range(max_dispatches if cut else bound):
+            state, chosens, picks = step_fn(state, consts,
+                                            _STEPS_PER_DISPATCH)
+            if "order" not in state:
+                keep = picks.cpu().numpy()
+                order.extend(chosens.cpu().numpy()[keep].tolist())
+            if bool(state["stop"]):
+                break
+        else:
+            if not cut:
+                raise RuntimeError(f"the device solver took {bound} "
+                                   "dispatches without reaching its stop")
     if "order" in state:
         return state["order"][:int(state["n_chosen"])].cpu().numpy()
     return np.array(order, dtype=np.int32)
 
 
-def solve_boundary_instance(dev, n_sets_real):
+def solve_boundary_instance(dev, n_sets_real, max_dispatches=None):
     """Solve the assembled device instance `dev`; returns the picked
     solver set ids (0..n_sets_real - 1) in order, np.int32.
 
@@ -1036,6 +1043,8 @@ def solve_boundary_instance(dev, n_sets_real):
     state never leaves the device; each dispatch of
     _STEPS_PER_DISPATCH K12 steps reads back its step vectors and the
     stop flag.  Reaching the dispatch bound without a stop raises.
+    `max_dispatches` bounds the solve for throughput measurement: at
+    most that many dispatches run, and the picks made so far come back.
 
     Replaces catch_tpu/ops/set_cover.py solve_boundary_instance
     (:862-914).
@@ -1046,7 +1055,8 @@ def solve_boundary_instance(dev, n_sets_real):
     covered = init_covered(dev["ivl_start"], dev["ivl_end"], dev["u_len"])
     state = initial_state(covered, dev["u_size"], dev["cost"].numel())
     bound = _dispatch_bound(n_sets_real, int(dev["n_rank_vals"]))
-    return _run_dispatches(greedy_steps_v2, state, dev, bound)
+    return _run_dispatches(greedy_steps_v2, state, dev, bound,
+                           max_dispatches)
 
 
 def assembled_instance(inst, device):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of catch_tpu_torch's design, span, design_large, solver and
-mesh paths on one NVIDIA GPU.
+"""Smoke run of catch_tpu_torch's design, span, design_large, solver, mesh,
+trace and pool paths on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -154,6 +154,20 @@ Phases (any failure exits non-zero and prints no result line):
      output (probe count and table) must equal
      ebola5_naive_{nrf,dsf}_2_60.txt.  Wall seconds of each, and the
      filter and span phases of (i).
+ 25. (i) ebola175 m2 as in phase 14 (CATCH_TPU_SOLVE=device) without
+     CATCH_TPU_PROFILE_DIR, then with it set to build/chip_smoke/traces/:
+     the design, phase 9's analysis and the design again; every output
+     must equal its golden, each of the four regions (scan_instance,
+     set_cover_solve, cover_scan_join, cover_scan_verify) must have
+     exactly one trace, the second design must add none, and the traces
+     must hold the kernels of TRACE_KERNELS by their __global__ names,
+     and a kernel for every launch made inside the region's span;
+     each region's device busy share (device_busy) and the three
+     designs' wall seconds.  (ii) catch_tpu_torch's cli/pool.py on the
+     three cases of pool_cases() in child processes (pool_command): the
+     TSVs must equal the goldens that
+     tests/data/golden/make_pool_goldens.py made with catch_tpu; the
+     numpy and scipy versions and each run's wall seconds.
 
 Each phase prints its wall seconds as it ends.  The line before the
 last is the card's name and power limit; the one before it a JSON
@@ -252,6 +266,57 @@ def naive_command(package, argv):
             " as d; numpy.random.seed(0); "
             "d.main(d.init_and_parse_args(sys.argv[1:]))")
     env = dict(os.environ, PYTHONHASHSEED="0")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    return [sys.executable, "-c", code] + list(argv), env
+
+
+# Phase 25's pool cases: (golden TSV, the CLI's arguments around the
+# output path).  The V-All slice is tests/test_pool.py TestVAllGrid's:
+# every fifth dataset of the 296, the first 60, at their share of the
+# published 350,000-probe budget.
+VWAFR_COUNTS = os.path.join(ROOT, "tests", "data",
+                            "num-probes.V-WAfr.201506.tsv")
+VALL_COUNTS = os.path.join(ROOT, "tests", "data",
+                           "num-probes.V-All.201606.tsv")
+VALL_SLICE, VALL_DATASETS, VALL_BUDGET = 60, 296, 350_000
+
+
+def vall_slice():
+    """The V-All slice's probe-count table, the original rows of its 60
+    datasets; returns (path, budget)."""
+    with open(VALL_COUNTS) as f:
+        head, *rows = f.readlines()
+    names = sorted({r.split("\t", 1)[0] for r in rows})
+    if len(names) != VALL_DATASETS:
+        fail(f"{VALL_COUNTS} holds {len(names)} datasets, not "
+             f"{VALL_DATASETS}")
+    keep = set(names[::5][:VALL_SLICE])
+    path = os.path.join(WORK, "num-probes.V-All.201606.slice60.tsv")
+    with open(path, "w") as f:
+        f.write(head)
+        f.writelines(r for r in rows if r.split("\t", 1)[0] in keep)
+    return path, VALL_BUDGET * VALL_SLICE // VALL_DATASETS
+
+
+def pool_cases():
+    """Phase 25's three pool CLI runs: (golden name, arguments before
+    the output TSV, arguments after it)."""
+    vall, budget = vall_slice()
+    return [("pool_vwafr_90000_round_1_10.tsv", [VWAFR_COUNTS, "90000"],
+             ["--round-params", "1", "10"]),
+            ("pool_vwafr_90000_nd.tsv", [VWAFR_COUNTS, "90000"],
+             ["--use-nd", "--loss-coeffs", "1", "0.01"]),
+            ("pool_vall60.tsv", [vall, str(budget)], [])]
+
+
+def pool_command(package, argv):
+    """cli/pool.py of `package` in a child process, numpy's global
+    generator seeded with 1 after the import: the search's initial guess
+    draws from it.  Returns (argv, environment) for subprocess."""
+    code = (f"import sys, numpy; from {package}.cli import pool; "
+            "numpy.random.seed(1); pool.run()")
+    env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
     return [sys.executable, "-c", code] + list(argv), env
@@ -840,6 +905,25 @@ class PhaseClock:
         self.t0 = now
 
 
+def ebola175_analysis(in175):
+    """Phases 9 and 25: catch_tpu_torch.cli.analyze_probe_coverage on
+    ebola175 with torch_ebola175_m2.fasta's probes on cuda; both TSVs
+    must equal their goldens."""
+    from catch_tpu_torch.cli import analyze_probe_coverage as analyze
+    tsv = {k: os.path.join(WORK, f"ebola175_m2_{k}.tsv")
+           for k in ("analysis", "probe_map_counts")}
+    analyze.main(analyze.init_and_parse_args([
+        "-d", in175, "-f", os.path.join(GOLDEN, "torch_ebola175_m2.fasta"),
+        "-m", "2", "-l", "60", "-e", "50",
+        "--write-analysis-to-tsv", tsv["analysis"],
+        "--write-probe-map-counts-to-tsv", tsv["probe_map_counts"],
+        "--device", "cuda"]))
+    for k, path in tsv.items():
+        if not same_bytes(path, os.path.join(GOLDEN,
+                                             f"ebola175_m2_{k}.tsv")):
+            fail(f"ebola175 {k} TSV differs from its golden")
+
+
 def identify_avoid_goldens(tag="", extra=()):
     """Phases 7, 14 and 18: the identify and avoid goldens through the CLI
     on cuda (`extra`: more flags)."""
@@ -888,15 +972,17 @@ def recording(module, name, keep):
         setattr(module, name, fn)
 
 
-def device_busy(path):
+def device_busy(path, since=None):
     """(device events, busy seconds, seconds by kind) of a chrome trace:
-    the union of the card's kernel, copy and set intervals."""
+    the union of the card's kernel, copy and set intervals (those that
+    start at `since` or later, where given)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     ivs, by_kind = [], {}
     for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
-                                                   "gpu_memset"):
+        if e.get("ph") == "X" and e.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset") and (
+                since is None or e["ts"] >= since):
             ivs.append((e["ts"], e["ts"] + e["dur"]))
             by_kind[e["cat"]] = by_kind.get(e["cat"], 0.0) + e["dur"] / 1e6
     busy, reach = 0.0, float("-inf")
@@ -1106,18 +1192,27 @@ def check_minhash_kernels(torch, si, kept, frag_sigs, flu_sigs):
 
 
 @contextlib.contextmanager
-def solve_on_device():
-    """CATCH_TPU_SOLVE=device for the block: the set-cover filter keeps
-    the instance on the card and runs the device solver."""
-    before = os.environ.get("CATCH_TPU_SOLVE")
-    os.environ["CATCH_TPU_SOLVE"] = "device"
+def environ(name, value):
+    """The environment variable `name` set to `value` (or unset, for
+    None) for the block, and restored after it."""
+    before = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
     try:
         yield
     finally:
         if before is None:
-            del os.environ["CATCH_TPU_SOLVE"]
+            os.environ.pop(name, None)
         else:
-            os.environ["CATCH_TPU_SOLVE"] = before
+            os.environ[name] = before
+
+
+def solve_on_device():
+    """CATCH_TPU_SOLVE=device for the block: the set-cover filter keeps
+    the instance on the card and runs the device solver."""
+    return environ("CATCH_TPU_SOLVE", "device")
 
 
 def device_solve_design(torch, si, profiling, in175):
@@ -1303,19 +1398,10 @@ def check_solver_kernels(torch, device, dev, inst):
     ])
 
 
-@contextlib.contextmanager
 def virtual_places(n):
     """CATCH_TPU_VIRTUAL_DEVICES=n for the block: n places are visible on
     the one card."""
-    before = os.environ.get("CATCH_TPU_VIRTUAL_DEVICES")
-    os.environ["CATCH_TPU_VIRTUAL_DEVICES"] = str(n)
-    try:
-        yield
-    finally:
-        if before is None:
-            del os.environ["CATCH_TPU_VIRTUAL_DEVICES"]
-        else:
-            os.environ["CATCH_TPU_VIRTUAL_DEVICES"] = before
+    return environ("CATCH_TPU_VIRTUAL_DEVICES", str(n))
 
 
 def mesh_design(torch, si, profiling, in175, stats5):
@@ -1958,6 +2044,160 @@ def host_modules(torch, si, profiling, in175):
               f"{wall:.3f} s (a child process)", flush=True)
 
 
+# Phase 25 (i): the trace regions (catch_tpu_torch/utils/profiling.py
+# maybe_trace), and for each the kernels its trace must hold: wrapper ->
+# the __global__ names of its kernels in catch_tpu_torch/csrc/, one of
+# which must appear.
+TRACE_REGIONS = ("scan_instance", "set_cover_solve", "cover_scan_join",
+                 "cover_scan_verify")
+TRACE_KERNELS = {
+    "scan_instance": {
+        "rolling_hash": ("rolling_hash_kernel",),
+        "lookup_expand": ("le_merge_kernel",),
+        "verify_windows": ("vw_mask_kernel", "vw_emit_kernel"),
+        "segmented_merge": ("sm_bounds_kernel", "sm_hist_kernel",
+                            "sm_warp_kernel", "sm_block_kernel",
+                            "sm_device_kernel", "sm_emit_kernel")},
+    "set_cover_solve": {"greedy_v2": ("v2_pair_kernel", "v2_set_kernel",
+                                      "v2_update_kernel")},
+    "cover_scan_verify": {"verify_spans": ("verify_spans_count_kernel",
+                                           "verify_spans_emit_kernel")},
+}
+
+
+def trace_files(root):
+    """{region: [trace files]} under root."""
+    return {r: sorted(os.listdir(os.path.join(root, r)))
+            for r in sorted(os.listdir(root))} if os.path.isdir(root) else {}
+
+
+def region_trace(path, region):
+    """Of the record_function(region) span of a trace: (kernel names,
+    kernels, kernel launches, seconds, start ts).  The launches are those
+    made inside the span, the kernels those correlated with them (the
+    capture's warm-up launches come before the span)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("name") == region
+             and e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+    if not spans:
+        fail(f"phase 25: the {region} trace holds no {region} event")
+    span = max(spans, key=lambda e: e["dur"])
+    a0, a1 = span["ts"], span["ts"] + span["dur"]
+    inside = {e["args"]["correlation"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "LaunchKernel" in e.get("name", "") and a0 <= e["ts"] <= a1}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in inside]
+    return set(kernels), len(kernels), len(inside), span["dur"] / 1e6, a0
+
+
+def traced_regions(torch, si, profiling, in175):
+    """Phase 25 (i): ebola175 m2 with the device solver, without and
+    with CATCH_TPU_PROFILE_DIR, then the analysis and a second design
+    with it: the outputs equal their goldens, each region has one trace
+    holding its kernels, and the second design adds none."""
+    import shutil
+
+    root = os.path.join(WORK, "traces")
+    shutil.rmtree(root, ignore_errors=True)
+    golden = os.path.join(GOLDEN, "torch_ebola175_m2.fasta")
+    walls = {}
+
+    def design175(tag):
+        out = os.path.join(WORK, f"ebola175_m2_{tag}.fasta")
+        _, walls[tag], launches, _ = counted(
+            torch, si, profiling, lambda: design(
+                [in175, "-o", out, "-pl", "100", "-m", "2", "-l", "60",
+                 "-e", "50", "--device", "cuda"]))
+        if not same_bytes(out, golden):
+            fail(f"phase 25: ebola175 m2 ({tag}) differs from "
+                 "torch_ebola175_m2.fasta")
+        require_launched(launches, ["greedy_v2"], f"the {tag} design")
+
+    with solve_on_device():
+        with environ("CATCH_TPU_PROFILE_DIR", None):
+            design175("untraced")
+        with environ("CATCH_TPU_PROFILE_DIR", root):
+            design175("traced")
+            _, walls["analysis"], _, _ = counted(
+                torch, si, profiling, lambda: ebola175_analysis(in175))
+            first = trace_files(root)
+            design175("again")
+    if trace_files(root) != first:
+        fail(f"phase 25: the second design added a trace: {first} -> "
+             f"{trace_files(root)}")
+    if sorted(first) != sorted(TRACE_REGIONS) or any(
+            len(v) != 1 for v in first.values()):
+        fail(f"phase 25: not one trace a region: {first}")
+    print(f"phase 25 (i): ebola175 m2 with the device solver, equal to "
+          f"golden each time: wall {walls['untraced']:.3f} s without "
+          f"CATCH_TPU_PROFILE_DIR, {walls['traced']:.3f} s with it (the "
+          f"first run: two captures and their export), "
+          f"{walls['again']:.3f} s a second time with it (no capture); "
+          f"the analysis with it {walls['analysis']:.3f} s, TSVs equal to "
+          f"goldens; one trace a region: {first}", flush=True)
+    for region in TRACE_REGIONS:
+        path = os.path.join(root, region, first[region][0])
+        kernels, n_kernels, n_launches, region_s, start = region_trace(
+            path, region)
+        if n_kernels != n_launches:
+            fail(f"phase 25: the {region} trace holds {n_kernels} kernels "
+                 f"of {n_launches} launches")
+        for wrapper, syms in TRACE_KERNELS.get(region, {}).items():
+            if not any(sym in k for sym in syms for k in kernels):
+                fail(f"phase 25: the {region} trace holds no kernel of "
+                     f"{wrapper} ({syms}); it holds {sorted(kernels)}")
+        n_ev, busy, by_kind = device_busy(path, since=start)
+        kinds = ", ".join(f"{k} {v:.6f} s" for k, v in sorted(
+            by_kind.items()))
+        print(f"  trace {region}: {os.path.getsize(path)} bytes; region "
+              f"{region_s:.6f} s; {n_kernels} kernels of its {n_launches} "
+              f"launches, {len(kernels)} names; from its start {n_ev} "
+              f"device events, the card busy {busy:.6f} s, "
+              f"{100 * busy / region_s:.4f}% of the region ({kinds}); "
+              f"kernels required: "
+              f"{sorted(TRACE_KERNELS.get(region, {})) or 'none'}",
+              flush=True)
+
+
+def pool_runs():
+    """Phase 25 (ii): catch_tpu_torch's cli/pool.py on the three golden
+    cases, in three child processes at once (pool_command); each TSV must
+    equal its golden."""
+    import numpy
+    import scipy
+
+    print(f"phase 25 (ii): numpy {numpy.__version__}, scipy "
+          f"{scipy.__version__}", flush=True)
+    procs = []
+    try:
+        for name, before, after in pool_cases():
+            out = os.path.join(WORK, name)
+            argv, env = pool_command("catch_tpu_torch",
+                                     before + [out] + after)
+            procs.append((name, out, time.time(), subprocess.Popen(
+                argv, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        for name, out, t0, p in procs:
+            stdout, stderr = p.communicate(timeout=240)
+            wall = time.time() - t0
+            if p.returncode != 0:
+                fail(f"phase 25 (ii): the pool CLI for {name} exited "
+                     f"{p.returncode}: {stderr[-2000:]}")
+            if not same_bytes(out, os.path.join(GOLDEN, name)):
+                fail(f"phase 25 (ii): the pool CLI's TSV differs from "
+                     f"{name}; it printed {stdout!r}")
+            print(f"  pool {name}: TSV equal to golden; "
+                  f"{'; '.join(stdout.splitlines())}; wall {wall:.3f} s "
+                  "(a child process, three at once)", flush=True)
+    finally:
+        for _, _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "catch_tpu_torch")):
         fail("catch_tpu_torch/ is not beside chip_smoke.py; run it from the "
@@ -2073,22 +2313,8 @@ def main():
     clock.done(8)
 
     # Phase 9: coverage analysis of ebola175 through the CLI.
-    from catch_tpu_torch.cli import analyze_probe_coverage as analyze
-    tsv = {k: os.path.join(WORK, f"ebola175_m2_{k}.tsv")
-           for k in ("analysis", "probe_map_counts")}
-    _, wall, launches, peak = counted(torch, si, profiling, lambda: (
-        analyze.main(analyze.init_and_parse_args([
-            "-d", in175, "-f", os.path.join(GOLDEN,
-                                            "torch_ebola175_m2.fasta"),
-            "-m", "2", "-l", "60", "-e", "50",
-            "--write-analysis-to-tsv", tsv["analysis"],
-            "--write-probe-map-counts-to-tsv", tsv["probe_map_counts"],
-            "--device", "cuda"]))))
-    for k, path in tsv.items():
-        with open(path, "rb") as a, open(
-                os.path.join(GOLDEN, f"ebola175_m2_{k}.tsv"), "rb") as b:
-            if a.read() != b.read():
-                fail(f"ebola175 {k} TSV differs from its golden")
+    _, wall, launches, peak = counted(torch, si, profiling,
+                                      lambda: ebola175_analysis(in175))
     print(f"ebola175 analysis: both TSVs equal to goldens; wall {wall:.3f} s;"
           f" peak allocated device memory {peak / 2**20:.1f} MiB",
           flush=True)
@@ -2192,6 +2418,11 @@ def main():
     # Phase 24: the host filters, custom functions and design_naively.
     host_modules(torch, si, profiling, in175)
     clock.done(24)
+
+    # Phase 25: the four trace regions, and the pool CLI.
+    traced_regions(torch, si, profiling, in175)
+    pool_runs()
+    clock.done(25)
 
     print(json.dumps({"kernels": rows}))
     print(card)

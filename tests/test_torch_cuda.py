@@ -537,6 +537,48 @@ def test_design_on_cuda_equals_cpu(cuda):
     assert out["cuda"] == out["cpu"] and out["cpu"]
 
 
+def test_scan_instance_trace_holds_the_scan_kernels(cuda, monkeypatch,
+                                                    tmp_path):
+    """With CATCH_TPU_PROFILE_DIR set, the scan_instance region's capture
+    on the card holds a kernel for every launch made inside the region,
+    those of lookup_expand and verify_windows among them (by their
+    __global__ names in csrc/), also after an earlier profiler session in
+    the process (which can cost a capture its first kernel records:
+    profiling._warm_up)."""
+    import json
+    import os
+
+    from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
+    from catch_tpu_torch.genome import Genome
+    from catch_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "_captured", set())
+    monkeypatch.setenv("CATCH_TPU_PROFILE_DIR", str(tmp_path))
+    genomes = [Genome.from_one_seq(g[0]) for g in _genomes(4, 1, False)]
+    probes = make_candidate_probes_from_sequences(
+        [g.seqs[0] for g in genomes], probe_length=80, probe_stride=40)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1 << 20, device=cuda).cumsum(0)
+        torch.cuda.synchronize()
+    SetCoverFilter(2, 60, cover_extension=25, device="cuda").filter(
+        [list(probes)], [genomes], input_is_grouped=True)
+    (name,) = os.listdir(tmp_path / "scan_instance")
+    with open(tmp_path / "scan_instance" / name) as f:
+        events = json.load(f)["traceEvents"]
+    (span,) = [e for e in events if e.get("name") == "scan_instance"
+               and e.get("cat") == "user_annotation"]
+    inside = {e["args"]["correlation"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "LaunchKernel" in e.get("name", "")
+              and span["ts"] <= e["ts"] <= span["ts"] + span["dur"]}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in inside]
+    assert len(kernels) == len(inside) > 0
+    for sym in ("le_merge_kernel", "vw_mask_kernel", "vw_emit_kernel"):
+        assert any(sym in k for k in kernels), (sym, sorted(kernels))
+
+
 def _span_corpus(seed):
     """Sequences mutated from one shared base, plus two shorter than the
     60 bp probes (one of them empty)."""

@@ -535,6 +535,48 @@ def test_dispatch_bound_raises_without_a_stop(monkeypatch):
         sct.solve_boundary_instance(dev, inst.n_sets)
 
 
+@pytest.mark.parametrize("max_dispatches", [1, 2, None])
+def test_boundary_solve_max_dispatches_equals_catch_tpu(
+        small_shapes, monkeypatch, max_dispatches):
+    """solve_boundary_instance(..., max_dispatches=k) runs k dispatches
+    and returns catch_tpu's picks so far, in its order; None solves to
+    the stop.  Three steps a dispatch in both packages, so that the
+    instance takes more than two."""
+    monkeypatch.setattr(scj, "_STEPS_PER_DISPATCH", 3)
+    monkeypatch.setattr(sct, "_STEPS_PER_DISPATCH", 3)
+    genomes = _corpus(np.random.default_rng(17), 6, 1500)
+    dev_j, dev_t, cand_of_set = _both_devs(
+        genomes, dict(mismatches=2, lcf_thres=60), 30)
+    S = len(cand_of_set)
+    full = scj.solve_boundary_instance(dev_j, S)
+    want = scj.solve_boundary_instance(dev_j, S,
+                                       max_dispatches=max_dispatches)
+    got = sct.solve_boundary_instance(dev_t, S,
+                                      max_dispatches=max_dispatches)
+    assert got.dtype == np.int32
+    assert np.array_equal(got, want)
+    if max_dispatches is None:
+        assert np.array_equal(got, full)
+    else:
+        assert 0 < len(got) <= 3 * max_dispatches < len(full)
+        assert np.array_equal(got, full[:len(got)])
+
+
+def test_max_dispatches_cuts_without_raising(monkeypatch):
+    """A solve cut short by max_dispatches returns its picks; one that
+    reaches the dispatch bound itself still raises."""
+    inst = convert.instance_from_reference(_instance("scatter2"))
+    dev = sct.assembled_instance(inst, CPU)
+    full = sct.solve_boundary_instance(dev, inst.n_sets)
+    monkeypatch.setattr(sct, "_STEPS_PER_DISPATCH", 1)
+    monkeypatch.setattr(sct, "_dispatch_bound", lambda n, r: 2)
+    assert np.array_equal(sct.solve_boundary_instance(
+        dev, inst.n_sets, max_dispatches=1), full[:1])
+    for k in (2, 5):
+        with pytest.raises(RuntimeError, match="without reaching its stop"):
+            sct.solve_boundary_instance(dev, inst.n_sets, max_dispatches=k)
+
+
 def test_instance_from_reference_copies_every_field():
     inst_j = _instance("arrays4")
     inst = convert.instance_from_reference(inst_j)
