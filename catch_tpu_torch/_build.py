@@ -79,8 +79,10 @@ _SIGNATURES = {
     "ct_assemble_maxima": [_P, _P, _I64, _P, _P],
     "ct_init_covered": [_P, _P, _I64, _I64, _P, _P, _P, _P],
     "ct_greedy_v2_steps": [_P, _I64, _P, _P, _I64, _P, _P, _P, _I64, _P, _P,
-                           _P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                           _P, _P, _P, _I64, _I32, _P, _P, _P, _P, _I32,
+                           _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _I32, _I32, _I32, _P],
+    "ct_k12_index": [_P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "ct_greedy_v1_steps": [_P, _I64, _P, _P, _I64, _P, _P, _P, _I64, _P, _P,
                            _P, _I64, _P, _P, _I64, _I32, _I32, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],

@@ -77,6 +77,13 @@ _STEPS_PER_DISPATCH = 64
 # csrc/greedy.cuh); sizes its tile buffer.
 _SCAN_TILE = 4096
 
+# K12 (csrc/greedy_v2.cu): positions a tile of its overlap index holds
+# (K12_TILE), threads of a score block (K12_THREADS), and the bits that
+# select its launches (K12_RECOMPUTE and the others).
+_K12_TILE = 256
+_K12_THREADS = 256
+_K12_STAGES = dict(recompute=1, score=2, decide=4, update=8)
+
 
 class SetCoverInstance:
     """A canonicalized multi-universe set-cover instance (flat arrays).
@@ -799,43 +806,189 @@ def greedy_steps_v2(state, consts, n_steps):
     ivl_start / ivl_end (int32[M]), pair_bounds (int32[P + 1]),
     set_bounds (int32[S + 1]), univ_of_pair (int32[P]), cost
     (float32[S]), rank_idx (int32[S]), can_uncover (int32[nU]) and the
-    ints n_rank_vals and max_ivls_per_set.
+    int n_rank_vals.  A set's intervals must be pairwise disjoint, as
+    stage D's merge leaves them.  On the card, the first call also keeps
+    the overlap index in consts (k12_index).
 
     Returns (state, chosens int32[n_steps], picks bool[n_steps]): each
     step's first-argmin set and whether it was picked; state["stop"] is
     the last step's stop flag.
 
     Replaces catch_tpu/ops/set_cover.py _steps_jit_v2 (:836-859) and
-    _greedy_core_v2 (:765-833); the kernel is csrc/greedy_v2.cu (a
-    chain of launches a step, no host synchronisation inside).
+    _greedy_core_v2 (:765-833); the kernel is csrc/greedy_v2.cu (each
+    pair's uncovered count recomputed once a call and then changed only
+    where a pick covers new positions; 3 launches a step, no host
+    synchronisation inside).
     """
-    tensors, (U, nU, S, M, P) = _step_tensors(state, consts, _V2_CONSTS,
-                                              n_steps)
+    tensors, _ = _step_tensors(state, consts, _V2_CONSTS, n_steps)
     if "order" in state:
         raise ValueError("greedy_steps_v2 keeps no device pick order")
     if si._on_cpu(*tensors):
         return _greedy_steps_v2_plain(state, consts, n_steps)
-    dev = state["covered"].device
-    chosens = torch.empty(n_steps, dtype=torch.int32, device=dev)
-    picks = torch.empty(n_steps, dtype=torch.bool, device=dev)
-    w = _scratch(dev, U, P, S)
-    c, p = consts, _build.ptr
-    lib = _build.library()
-    _build.check(lib.ct_greedy_v2_steps(
-        p(state["covered"]), U, p(state["len_u"]), p(c["can_uncover"]), nU,
-        p(state["in_cover"]), p(c["cost"]), p(c["rank_idx"]), S,
-        p(c["ivl_start"]), p(c["ivl_end"]), p(c["pair_bounds"]),
-        p(c["set_bounds"]), p(c["univ_of_pair"]), P, int(c["n_rank_vals"]),
-        int(c["max_ivls_per_set"]), n_steps, p(state["cur_rank"]),
-        p(state["stop"]), p(chosens), p(picks), p(w["prefix"]),
-        p(w["tiles"]), p(w["pair_new"]), p(w["pair_aux"]), p(w["blk_r"]),
-        p(w["blk_i"]), p(w["blk_any"]), p(w["dec"]),
-        _build.stream_of(chosens)), "greedy_v2")
+    out = _greedy_steps_v2_cuda(state, consts, n_steps)
     greedy_steps_v2.launches += 1
-    return state, chosens, picks
+    return out
 
 
 greedy_steps_v2.launches = 0
+
+
+def overlap_index(ivl_start, ivl_end, pair_bounds, set_bounds, univ_of_pair,
+                  U, tile=_K12_TILE):
+    """K12's overlap index of a boundary-indexed instance, on the
+    instance's device.
+
+    A piece is a non-empty interval cut to one tile of `tile` positions;
+    interval i's pieces are piece_off[i]..piece_off[i + 1], in position
+    order.  Returns a dict: ivl_rec (int32[M, 4]: each interval's start,
+    end, pair and universe) and pair_of_ivl (its third column); piece_off
+    (int32[M + 1]); tile_ptr (int32[ceil(U / tile) + 1]) and tile_ivl
+    (int32[pieces]), the intervals that meet tile t being
+    tile_ivl[tile_ptr[t]:tile_ptr[t + 1]]; max_pieces and max_pairs, the
+    most pieces and pairs of one set (0 without sets).  Raises
+    ValueError where two intervals of a pair overlap: the incremental
+    step counts a newly covered position once a chosen interval.  On
+    CUDA tensors the tile lists come from csrc/greedy_v2.cu's count and
+    fill kernels (`tile` must be K12_TILE; each tile's intervals in the
+    order of the fill's atomics), on CPU tensors from a stable sort
+    (ascending).
+    """
+    dev = ivl_start.device
+    M, P, S = ivl_start.numel(), pair_bounds.numel() - 1, \
+        set_bounds.numel() - 1
+    n_pieces = torch.where(ivl_end > ivl_start,
+                           (ivl_end - 1) // tile - ivl_start // tile + 1, 0)
+    piece_off = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+    piece_off[1:] = torch.cumsum(n_pieces, 0, dtype=torch.int64)
+    pair_of_ivl = torch.repeat_interleave(
+        torch.arange(P, dtype=torch.int32, device=dev),
+        pair_bounds[1:] - pair_bounds[:-1], output_size=M)
+    # a pair's intervals, in start order, must not overlap
+    overlaps = ((pair_of_ivl[1:] == pair_of_ivl[:-1])
+                & (ivl_start[1:] < ivl_end[:-1])
+                & (ivl_end[1:] > ivl_start[1:])).any()
+    ivl_bounds = pair_bounds.long()[set_bounds.long()]
+    maxima = torch.stack([
+        piece_off[-1],
+        (piece_off[ivl_bounds[1:]] - piece_off[ivl_bounds[:-1]]).max()
+        if S else piece_off[0],
+        (set_bounds[1:] - set_bounds[:-1]).max().long() if S
+        else piece_off[0], overlaps.long()]).tolist()
+    n_total, max_pieces, max_pairs, overlapping = maxima
+    if overlapping:
+        raise ValueError("a pair's intervals overlap; K12's update needs "
+                         "them merged (disjoint, in start order)")
+    if n_total >= _DEVICE_AXIS_LIMIT:
+        raise ValueError(f"{n_total} pieces do not fit the overlap "
+                         "index's int32 offsets")
+    piece_off = piece_off.to(torch.int32)
+    if si._on_cpu(ivl_start):
+        tile_ptr, tile_ivl = _tile_lists_plain(ivl_start, piece_off,
+                                               n_pieces, n_total, U, tile)
+    else:
+        if tile != _K12_TILE:
+            raise ValueError(f"the card's overlap index has tiles of "
+                             f"{_K12_TILE} positions, not {tile}")
+        del n_pieces
+        n_tiles = -(-U // tile)
+        tile_ptr = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
+        tile_ivl = torch.empty(max(n_total, 1), dtype=torch.int32,
+                               device=dev)
+        count = torch.empty(max(n_tiles, 1), dtype=torch.int32, device=dev)
+        scan_tiles = torch.empty(max(1, -(-n_tiles // _SCAN_TILE)),
+                                 dtype=torch.int32, device=dev)
+        _build.check(_build.library().ct_k12_index(
+            _build.ptr(ivl_start), _build.ptr(ivl_end), M, n_tiles,
+            _build.ptr(count), _build.ptr(scan_tiles), _build.ptr(tile_ptr),
+            _build.ptr(tile_ivl), _build.stream_of(ivl_start)), "greedy_v2")
+        tile_ivl = tile_ivl[:n_total]
+    ivl_rec = torch.stack([ivl_start, ivl_end, pair_of_ivl,
+                           univ_of_pair[pair_of_ivl.long()]], dim=1)
+    return dict(ivl_rec=ivl_rec, pair_of_ivl=ivl_rec[:, 2],
+                piece_off=piece_off, tile_ptr=tile_ptr, tile_ivl=tile_ivl,
+                max_pieces=max_pieces, max_pairs=max_pairs)
+
+
+def _tile_lists_plain(ivl_start, piece_off, n_pieces, n_total, U, tile):
+    """(tile_ptr, tile_ivl) of overlap_index by a stable sort of the
+    pieces by tile."""
+    dev = ivl_start.device
+    ivl = torch.repeat_interleave(
+        torch.arange(ivl_start.numel(), dtype=torch.int32, device=dev),
+        n_pieces, output_size=n_total)
+    # piece g of interval i lies in tile ivl_start[i] // tile + g -
+    # piece_off[i]
+    tile_of = torch.index_select(ivl_start // tile - piece_off[:-1], 0, ivl)
+    tile_of += torch.arange(n_total, dtype=torch.int32, device=dev)
+    tile_of, order = torch.sort(tile_of, stable=True)
+    tile_ptr = torch.searchsorted(tile_of, torch.arange(
+        -(-U // tile) + 1, dtype=torch.int32, device=dev), out_int32=True)
+    return tile_ptr, ivl[order]
+
+
+def k12_index(consts, U):
+    """The overlap index of `consts` over U positions, built by
+    overlap_index at the first call and kept in consts under
+    "_k12_index" (built again if ivl_start was replaced)."""
+    idx = consts.get("_k12_index")
+    if idx is None or idx["of"] is not consts["ivl_start"] \
+            or idx["U"] != U:
+        idx = overlap_index(*(consts[k] for k in (
+            "ivl_start", "ivl_end", "pair_bounds", "set_bounds",
+            "univ_of_pair")), U)
+        idx.update(of=consts["ivl_start"], U=U)
+        consts["_k12_index"] = idx
+    return idx
+
+
+def _greedy_steps_v2_cuda(state, consts, n_steps, steps=None):
+    """greedy_steps_v2 on the card.  `steps`, when given, has a
+    mark(name) method; each launch is then a call of its own, marked
+    after it as "recompute", "score", "decide" or "update"
+    (tools/k12_split.py times them with CUDA events)."""
+    U, nU = state["covered"].numel(), state["len_u"].numel()
+    S, P = consts["cost"].numel(), consts["univ_of_pair"].numel()
+    idx = k12_index(consts, U)
+    dev = state["covered"].device
+    lg = min(5, max(0, idx["max_pairs"] - 1).bit_length())
+    nb = -(-(S << lg) // _K12_THREADS)
+
+    def ints(n):
+        return torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+
+    chosens = torch.empty(n_steps, dtype=torch.int32, device=dev)
+    picks = torch.empty(n_steps, dtype=torch.bool, device=dev)
+    blk_r = torch.empty(max(nb, 1), dtype=torch.float32, device=dev)
+    prefix, tiles, pair_new = ints(U + 1), ints(-(-U // _SCAN_TILE)), ints(P)
+    blk_i, blk_any, dec = ints(nb), ints(nb), ints(2)
+    c, p = consts, _build.ptr
+    args = (p(state["covered"]), U, p(state["len_u"]), p(c["can_uncover"]),
+            nU, p(state["in_cover"]), p(c["cost"]), p(c["rank_idx"]), S,
+            p(c["ivl_start"]), p(c["ivl_end"]), p(c["pair_bounds"]),
+            p(c["set_bounds"]), p(c["univ_of_pair"]), P,
+            int(c["n_rank_vals"]), p(idx["ivl_rec"]),
+            p(idx["piece_off"]), p(idx["tile_ptr"]), p(idx["tile_ivl"]),
+            lg, nb, idx["max_pieces"], p(state["cur_rank"]), p(state["stop"]),
+            p(chosens), p(picks), p(prefix), p(tiles), p(pair_new),
+            p(blk_r), p(blk_i), p(blk_any), p(dec))
+    stream = _build.stream_of(chosens)
+    lib = _build.library()
+
+    def run(step0, n, stages):
+        _build.check(lib.ct_greedy_v2_steps(*args, step0, n, stages, stream),
+                     "greedy_v2")
+
+    if steps is None:
+        run(0, n_steps, sum(_K12_STAGES.values()))
+        return state, chosens, picks
+    steps.mark("start")
+    run(0, 0, _K12_STAGES["recompute"])
+    steps.mark("recompute")
+    for t in range(n_steps):
+        for name in ("score", "decide", "update"):
+            run(t, 1, _K12_STAGES[name])
+            steps.mark(name)
+    return state, chosens, picks
 
 
 @_build.on_own_device

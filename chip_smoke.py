@@ -62,9 +62,9 @@ Phases (any failure exits non-zero and prints no result line):
      'hierarchical' (minhash_dists); both must equal their goldens;
  13. minhash_caps' four entry points, minhash_sig and pack_merged against
      their twins at those shapes (phase 11's group, wave, caps call and
-     cluster, phase 12's fragments and the first 8,192 flu10k
-     sequences): exactly equal, the float32 distances bit for bit;
-     CUDA-event medians, min and max;
+     cluster, phase 12's fragments and the first FLU_ALL_PAIRS (4,096)
+     flu10k sequences): exactly equal, the float32 distances bit for
+     bit; CUDA-event medians, min and max;
  14. ebola175 m2 as in phase 5 with CATCH_TPU_SOLVE=device (stage E and
      the greedy steps on the card), counting launches: the FASTA must
      equal torch_ebola175_m2.fasta byte for byte, and assemble,
@@ -79,9 +79,12 @@ Phases (any failure exits non-zero and prints no result line):
      force_device=True) and _solve_device (K13), counting launches: the
      four pick orders must be equal; each is timed;
  16. assemble and init_covered on phase 14's instance, greedy_v2 on one
-     64-step dispatch from its initial state and greedy_v1 on one of
-     phase 15's instance, against their twins: exactly equal, the whole
-     state included; CUDA-event medians, min and max.
+     64-step dispatch from its initial state, greedy_v1 on one of phase
+     15's instance, and greedy_v2 on one of phase 15's instance (printed,
+     not in the JSON line), against their twins: exactly equal, the
+     whole state included; CUDA-event medians, min and max; greedy_v2's
+     bound the smaller of a full recompute every step and the
+     incremental design's own bytes (k12_work).
 
  17. the device mesh, with CATCH_TPU_VIRTUAL_DEVICES=4 set for this
      process (four places on the one card; restored after): ebola175 m2
@@ -228,6 +231,13 @@ MESH_PLACES = 4
 
 # bench.py's solver-throughput instance (bench.py:178-198).
 SOLVER_N_SETS, SOLVER_N_UNIV, SOLVER_U_LEN = 100_000, 128, 8192
+
+# Phase 13's second all-pairs check: the first this many flu10k
+# signatures.  It was 8,192; a run of the whole script past 600 s of its
+# 1,200 s limit cut it, as it repeats at a larger size what the check on
+# phase 12's 5,400 fragments and phase 12 itself cover (its two twins
+# take about 11 s a call at 8,192, a quarter of that at 4,096).
+FLU_ALL_PAIRS = 4096
 
 # Phase 24's custom hybridization function, written to a file and loaded
 # by --custom-hybridization-fn (tests/data/golden/make_host_goldens.py
@@ -1332,17 +1342,54 @@ def solver_bench(torch, si, profiling, device):
 
 
 def step_work(U, M, P, S, nU, ivl_bytes, pair_bytes):
-    """(bytes, operations) of one greedy step: `covered`, the prefix, and
-    the interval, pair, set and universe arrays once."""
+    """(bytes, operations) of one greedy step with a full recompute:
+    `covered`, the prefix, and the interval, pair, set and universe
+    arrays once."""
     return (U + 4 * (U + 1) + ivl_bytes * M + pair_bytes * P + 13 * S
             + 8 * nU, U + M + P + S)
+
+
+def k12_work(torch, sct, what, dev, state0, n_steps):
+    """The (bytes, operations) of one K12 dispatch of n_steps from
+    state0 that bound_ms takes: the smaller bound of (a) a full
+    recompute every step (step_work, catch_tpu's step) and (b) the
+    incremental design's own: the recompute once (`covered` and the
+    intervals read, the prefix and pair_new written, pair_bounds read),
+    each step's score pass (pair_new and univ_of_pair, 8 bytes a pair;
+    the set arrays, 13 bytes a set; the universe arrays), and each
+    pick's chosen positions read and written.  The picks are the twin's
+    on a copy of state0."""
+    U, S = dev["u_len"], dev["cost"].numel()
+    M, P = dev["ivl_start"].numel(), dev["univ_of_pair"].numel()
+    nU = dev["can_uncover"].numel()
+    _, chosens, picks = sct._greedy_steps_v2_plain(
+        {k: v.clone() for k, v in state0.items()}, dev, n_steps)
+    pb, sb = dev["pair_bounds"].long(), dev["set_bounds"].long()
+    lengths = torch.zeros(M + 1, dtype=torch.int64, device=pb.device)
+    lengths[1:] = torch.cumsum(dev["ivl_end"] - dev["ivl_start"], 0)
+    c = chosens[picks].long()
+    chosen_pos = int((lengths[pb[sb[c + 1]]] - lengths[pb[sb[c]]]).sum())
+    full = step_work(U, M, P, S, nU, 8, 8)
+    full = (n_steps * full[0], n_steps * full[1])
+    incr = (U + 4 * (U + 1) + 8 * M + 8 * P + 4
+            + n_steps * (8 * P + 13 * S + 8 * nU) + 2 * chosen_pos,
+            U + M + P + n_steps * (P + S) + chosen_pos)
+    print(f"greedy_v2 work ({what}, {n_steps} steps, {int(picks.sum())} "
+          f"picks over {chosen_pos} chosen positions): a full recompute "
+          f"every step {full[0]} bytes, {full[1]} operations (bound "
+          f"{bound(full)[0]:.4f} ms); the incremental step's own "
+          f"{incr[0]} bytes, {incr[1]} operations (bound "
+          f"{bound(incr)[0]:.4f} ms); the bound is the smaller", flush=True)
+    return min(full, incr, key=lambda w: bound(w)[0])
 
 
 def check_solver_kernels(torch, device, dev, inst):
     """Phase 16: K10-K13 against their twins: assemble and init_covered
     on phase 14's instance, one 64-step greedy_v2 dispatch from its
     initial state, one 64-step greedy_v1 dispatch of phase 15's
-    instance.  Returns the JSON rows."""
+    instance; then greedy_v2 on one 64-step dispatch of phase 15's
+    instance (printed; its row is not in the JSON line, which holds
+    ebola175's).  Returns the JSON rows."""
     from catch_tpu_torch.ops import scan_instance as si
     from catch_tpu_torch.ops import set_cover as sct
 
@@ -1380,22 +1427,32 @@ def check_solver_kernels(torch, device, dev, inst):
     # Bytes each input read once and each output written once, and an
     # operation per element.  K10: 24 bytes a row in, 8 out, the pair
     # arrays (pair_bounds, univ_of_pair) and set_bounds out.  K11: the intervals in, a byte a position out.
-    # A greedy step: `covered`, the prefix, and the interval, pair, set
-    # and universe arrays once.
-    v2 = step_work(U, n, P, S, nU, 8, 8)
+    # A K13 step: `covered`, the prefix, and the interval, pair, set and
+    # universe arrays once; K12: k12_work.
+    v2 = k12_work(torch, sct, "ebola175", dev, state12, n_steps)
     v1 = step_work(inst.u_len, M13, P13, inst.n_sets, inst.n_universes, 12,
                    8)
-    return compare(torch, [
+    dev15 = sct.assembled_instance(inst, device)
+    state15 = sct.initial_state(sct.init_covered(
+        dev15["ivl_start"], dev15["ivl_end"], dev15["u_len"]),
+        dev15["u_size"], inst.n_sets)
+    v2_15 = k12_work(torch, sct, "solver instance", dev15, state15, n_steps)
+    rows = compare(torch, [
         ("assemble", k10, si._assemble_plain, si.assemble, 10,
          (32 * n + 8 * (nU + 1) + 4 * (2 * P + 1) + 4 * (S + 1),
           n + P + S)),
         ("init_covered", k11, sct._init_covered_plain, sct.init_covered, 20,
          (8 * n + U, n + U)),
         ("greedy_v2", stepper(state12, dev), sct._greedy_steps_v2_plain,
-         sct.greedy_steps_v2, 5, (n_steps * v2[0], n_steps * v2[1])),
+         sct.greedy_steps_v2, 5, v2),
         ("greedy_v1", stepper(state13, consts), sct._greedy_steps_v1_plain,
          sct.greedy_steps_v1, 5, (n_steps * v1[0], n_steps * v1[1])),
     ])
+    print("greedy_v2 on phase 15's solver instance:", flush=True)
+    compare(torch, [("greedy_v2", stepper(state15, dev15),
+                     sct._greedy_steps_v2_plain, sct.greedy_steps_v2, 5,
+                     v2_15)])
+    return rows
 
 
 def virtual_places(n):
@@ -2058,8 +2115,9 @@ TRACE_KERNELS = {
         "segmented_merge": ("sm_bounds_kernel", "sm_hist_kernel",
                             "sm_warp_kernel", "sm_block_kernel",
                             "sm_device_kernel", "sm_emit_kernel")},
-    "set_cover_solve": {"greedy_v2": ("v2_pair_kernel", "v2_set_kernel",
-                                      "v2_update_kernel")},
+    "set_cover_solve": {"greedy_v2": ("k12_pair_new_kernel",
+                                      "k12_score_kernel",
+                                      "k12_update_kernel")},
     "cover_scan_verify": {"verify_spans": ("verify_spans_count_kernel",
                                            "verify_spans_emit_kernel")},
 }
@@ -2344,7 +2402,7 @@ def main():
     # Phase 13: the MinHash kernels against their twins.
     mh_rows = check_minhash_kernels(torch, si, kept,
                                     scale["minhash_dists"][1],
-                                    kept["sigs"][:8192])
+                                    kept["sigs"][:FLU_ALL_PAIRS])
     for r in mh_rows:
         r["launches"] = (scale[r["name"]][0] if r["name"] in scale
                          else launches[r["name"]])

@@ -15,7 +15,10 @@ ranges, the span scan without minimizers (w = 1) and in
 many expansion slabs, and empty inputs; for verify_windows' mask
 kernels, probe lengths 75 to 250, every alignment mod 16, K from 0 to
 62, a corpus with no tail pad or not 16-byte aligned, and alphabets of
-more than four codes with 'N' and PAD.  Every comparison is exact.
+more than four codes with 'N' and PAD; for greedy_v2, a set of more
+pairs than a block, sets with no pairs, intervals across many tiles of
+its overlap index, position axes at the scan's tile edges and a stop
+mid-dispatch.  Every comparison is exact.
 """
 
 import numpy as np
@@ -897,6 +900,160 @@ def test_greedy_v2_equals_twin(cuda, case):
         assert ch.item() == chosens[t].item() and pk.item() == picks[t].item()
     _assert_equal(_state_tuple(single, chosens, picks),
                   _state_tuple(*got))
+
+
+# K12's shapes past the random cases: a set of more pairs than a warp
+# and than a block, sets with no pairs, intervals across many tiles of
+# the overlap index (256 positions), position axes at the scan's tile
+# edges (4,096), a stop that latches mid-dispatch after a rank advance,
+# and the solver instance's 4 intervals a set.
+V2_SHAPES = ["wide", "empty_sets", "long", "U1", "U4095", "U4096", "U4097",
+             "stop", "solver_like"]
+
+
+def _v2_shape(name):
+    """A port SetCoverInstance of K12 shape `name` (V2_SHAPES)."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    rng = np.random.default_rng(V2_SHAPES.index(name))
+    ranks = costs = None
+    if name == "wide":
+        nU, n_sets = 300, 24
+        sid = np.concatenate([np.zeros(nU, int), np.ones(40, int),
+                              rng.integers(2, n_sets, size=600)])
+        uid = np.concatenate([np.arange(nU), rng.choice(nU, 40, False),
+                              rng.integers(0, nU, size=600)])
+        st = rng.integers(0, 50, size=len(sid))
+        en = st + rng.integers(1, 30, size=len(sid))
+        p = rng.choice([0.6, 1.0], size=nU)
+    elif name == "empty_sets":
+        nU, n_sets = 3, 50
+        sid = rng.choice([3, 17, 18, 40, 49], size=60)
+        uid = rng.integers(0, nU, size=60)
+        st = rng.integers(0, 900, size=60)
+        en = st + rng.integers(0, 200, size=60)
+        p = np.ones(nU)
+    elif name == "long":
+        nU, n_sets = 2, 30
+        sid = rng.integers(0, n_sets, size=200)
+        uid = rng.integers(0, nU, size=200)
+        st = rng.integers(0, 5000, size=200)
+        en = st + rng.integers(1, 700, size=200)
+        sid[:3], uid[:3] = [5, 6, 7], [0, 0, 1]
+        st[:3], en[:3] = [3, 250, 0], [5003, 260, 5700]
+        p = np.array([1.0, 0.9])
+        costs = np.where(np.isin(np.arange(n_sets), [5, 7]), 40.0, 1.0)
+    elif name.startswith("U"):
+        U = int(name[1:])
+        nU, n_sets = (1, 3) if U == 1 else (2, 40)
+        n = 3 if U == 1 else 300
+        sid = np.arange(n) % n_sets
+        uid = np.arange(n) % nU               # universe u ends at span[u]
+        span = [U] if U == 1 else [U // 3, U - U // 3]
+        lim = np.array(span)[uid]
+        st = rng.integers(0, lim)
+        en = np.minimum(lim, st + rng.integers(0, 600, size=n))
+        st[:nU], en[:nU] = lim[:nU] - 5 if U > 1 else 0, lim[:nU]
+        p = np.ones(nU)
+    elif name == "stop":
+        nU, n_sets = 3, 14
+        sid = rng.integers(0, n_sets, size=40)
+        uid = rng.integers(0, nU, size=40)
+        st = rng.integers(0, 300, size=40)
+        en = st + rng.integers(1, 100, size=40)
+        p = np.array([0.5, 0.8, 0.9])
+        ranks = np.where(np.arange(n_sets) < 10, 1, 2)
+        costs = rng.choice([1.0, 2.0], size=n_sets)
+    else:                                     # solver_like
+        nU, n_sets, ulen = 16, 3000, 2048
+        sid = np.repeat(np.arange(n_sets), 4)
+        uid = rng.integers(0, nU, size=4 * n_sets)
+        st = rng.integers(0, ulen - 400, size=4 * n_sets)
+        en = st + rng.integers(150, 400, size=4 * n_sets)
+        p = np.ones(nU)
+    return sct.build_instance_from_cover_arrays(
+        sid, uid, st, en, n_sets, nU, p, ranks=ranks, costs=costs)
+
+
+@pytest.mark.parametrize("name", V2_SHAPES)
+def test_greedy_v2_shapes_equal_twin(cuda, name):
+    """K12 against its twin on one 64-step dispatch, state included; 64
+    single-step dispatches give the same steps and state; the whole
+    solve gives the host lazy solver's picks."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _v2_shape(name)
+    d = sct.assembled_instance(inst, cuda)
+    covered = sct.init_covered(d["ivl_start"], d["ivl_end"], d["u_len"])
+    state0 = sct.initial_state(covered, d["u_size"], inst.n_sets)
+    got = sct.greedy_steps_v2(_clone(state0), d, 64)
+    torch.cuda.synchronize()
+    want = sct._greedy_steps_v2_plain(_clone(state0), d, 64)
+    _assert_equal(_state_tuple(*got), _state_tuple(*want))
+    state, chosens, picks = got
+    assert picks.any()
+    idx = d["_k12_index"]
+    if name == "wide":
+        assert d["max_pairs_per_set"] > 256
+    elif name == "empty_sets":
+        assert (torch.diff(d["set_bounds"]) == 0).sum() > 40
+    elif name == "long":
+        assert idx["max_pieces"] > 20
+    elif name.startswith("U"):
+        assert d["u_len"] == int(name[1:])
+    elif name == "stop":                      # latched, steps after it
+        assert bool(state["stop"]) and not picks[-10:].any()
+        assert int(state["cur_rank"]) > 0
+    single = _clone(state0)
+    for t in range(64):
+        single, ch, pk = sct.greedy_steps_v2(single, d, 1)
+        assert ch.item() == chosens[t].item() and pk.item() == picks[t].item()
+    _assert_equal(_state_tuple(single, chosens, picks), _state_tuple(*got))
+    assert np.array_equal(sct.solve_boundary_instance(d, inst.n_sets),
+                          sct.solve_instance(inst))
+
+
+@pytest.mark.parametrize("name", ["random"] + V2_SHAPES)
+def test_overlap_index_equals_twin(cuda, name):
+    """The card's overlap index (count and fill kernels) against the
+    twin's stable sort: every array equal, each tile's intervals equal
+    as sets (the card's order is its atomics')."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _cover_instance(name) if name == "random" else _v2_shape(name)
+    d = sct.assembled_instance(inst, cuda)
+    args = [d[k] for k in ("ivl_start", "ivl_end", "pair_bounds",
+                           "set_bounds", "univ_of_pair")]
+    got = sct.overlap_index(*args, d["u_len"])
+    torch.cuda.synchronize()
+    want = sct.overlap_index(*[x.cpu() for x in args], d["u_len"])
+    for k in ("ivl_rec", "pair_of_ivl", "piece_off", "tile_ptr"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    for k in ("max_pieces", "max_pairs"):
+        assert got[k] == want[k], k
+    ptr = want["tile_ptr"]
+    tile = torch.repeat_interleave(torch.arange(ptr.numel() - 1),
+                                   torch.diff(ptr)).long()
+    M = args[0].numel()
+    assert torch.equal(torch.sort(tile * M + got["tile_ivl"].cpu()).values,
+                       tile * M + want["tile_ivl"])
+
+
+def test_greedy_v2_keeps_its_index(cuda):
+    """The overlap index is built once per instance and again only when
+    the instance's intervals are replaced."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst, d, state0 = _v2_setup("random", cuda)
+    sct.greedy_steps_v2(_clone(state0), d, 4)
+    idx = d["_k12_index"]
+    sct.greedy_steps_v2(_clone(state0), d, 4)
+    assert d["_k12_index"] is idx
+    d["ivl_start"] = d["ivl_start"].clone()
+    got = sct.greedy_steps_v2(_clone(state0), d, 64)
+    assert d["_k12_index"] is not idx
+    want = sct._greedy_steps_v2_plain(_clone(state0), d, 64)
+    _assert_equal(_state_tuple(*got), _state_tuple(*want))
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "nothing"])
