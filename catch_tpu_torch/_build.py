@@ -67,10 +67,13 @@ _SIGNATURES = {
     "ct_sm_bounds": [_P, _P, _P, _I64, _P, _P],
     "ct_sm_run": [_P, _P, _P, _I64, _I64, _I32, _I64, _I32, _I32, _I32, _I32,
                   _P, _P, _P, _P, _P, _P, _I32, _P],
-    "ct_minhash_dists": [_P, _I64, _P, _I64, _I32, _P, _P],
-    "ct_minhash_codes": [_P, _I64, _P, _I64, _I32, _I32, _I32, _P, _P],
-    "ct_minhash_caps": [_P, _I64, _P, _I64, _I32, _I32, _P, _P],
-    "ct_minhash_assign": [_P, _I64, _P, _I64, _I32, _I32, _P, _P, _P],
+    "ct_minhash_dists": [_P, _I64, _P, _I64, _I32, _P, _P, _I32, _P],
+    "ct_minhash_codes": [_P, _I64, _P, _I64, _I32, _I32, _I32, _P, _P, _I32,
+                         _P],
+    "ct_minhash_caps": [_P, _I64, _P, _I64, _I32, _I32, _P, _P, _I32, _P],
+    "ct_minhash_assign": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P, _P,
+                          _P, _I32, _P],
+    "ct_minhash_order": [_P, _I64, _P, _I64, _I32, _P, _I32, _P],
     "ct_minhash_sig": [_P, _I64, _I32, _P, _I32, _P, _P],
     "ct_pack_merged": [_P, _P, _P, _I64, _I32, _I32, _P, _P, _P],
     "ct_pack_escapes": [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P],

@@ -341,6 +341,8 @@ class SetCoverFilter(BaseFilter):
         stats["scan_seconds"] += time.time() - t0
         t0 = time.time()
         if on_device:
+            # solve_boundary_instance takes the host route itself where
+            # K12's overlap index would not fit int32 (k12_piece_count)
             order = set_cover.solve_boundary_instance(dev, len(perm))
             chosen = pid_of[perm[order]]
         else:

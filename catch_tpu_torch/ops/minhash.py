@@ -37,10 +37,18 @@ __all__ = ["minhash_dists", "minhash_codes", "minhash_caps",
 
 MERSENNE_P = 2**31 - 1
 
-# A block stages 16 query and 16 representative rows of N int32 in
-# shared memory (csrc/minhash_caps.cu): 128 * N bytes of the 227 KB a
-# block may use, with room for the assign kernel's reduction arrays.
+# A block stages 32 representative rows and at least one query row of
+# N + 1 int32 in shared memory (csrc/minhash_caps.cu): 33 * (N + 1) * 4
+# bytes of the 227 KB a block may use.
 _MAX_N = 1536
+
+# Blocks of the row-order check (minhash_order_kernel): each writes one
+# flag byte, read back in one copy (MH_ORDER_MAX_BLOCKS).
+_ORDER_BLOCKS = 264
+
+# Representatives a group of the assign kernel holds (MH_LANES): one
+# 64-bit key a group and query goes to its reduction.
+_GROUP = 32
 
 
 # ----------------------------------------------------------------------
@@ -48,8 +56,8 @@ _MAX_N = 1536
 # ----------------------------------------------------------------------
 
 def _check_pair(qs, rs):
-    """N of two int32 signature matrices of equal width; on CUDA also
-    checks that every row ascends."""
+    """N of two int32 signature matrices of equal width, and whether
+    they lie on the CPU; on CUDA, N must be at most _MAX_N."""
     si._require(qs, torch.int32, "qs")
     si._require(rs, torch.int32, "rs")
     if qs.dim() != 2 or rs.dim() != 2 or qs.shape[1] != rs.shape[1]:
@@ -62,11 +70,28 @@ def _check_pair(qs, rs):
     if N > _MAX_N:
         raise ValueError(f"signature length {N} exceeds the kernel's "
                          f"{_MAX_N}")
-    for m, name in ((qs, "qs"), (rs, "rs")):
-        if N > 1 and m.shape[0] and not bool((m[:, 1:] >= m[:, :-1]).all()):
+    return N, False
+
+
+def _walk(entry, qs, rs, *args):
+    """Call csrc/minhash_caps.cu's entry point `entry` on qs and rs, with
+    `args` after their pointers and row counts and before the flag
+    arguments.  The one call checks that every row of qs and rs ascends
+    (minhash_order_kernel, one pass over both), launches the kernels
+    and waits for the flags, its only synchronisation; an unsorted row
+    raises ValueError."""
+    N = qs.shape[1]
+    words = (qs.shape[0] + rs.shape[0]) * N
+    blocks = min(_ORDER_BLOCKS, -(-words // 1024)) if N > 1 else 0
+    flags = torch.empty(max(blocks, 1), dtype=torch.uint8, device=qs.device)
+    rc = getattr(_build.library(), entry)(
+        _build.ptr(qs), qs.shape[0], _build.ptr(rs), rs.shape[0], *args,
+        _build.ptr(flags), blocks, _build.stream_of(qs))
+    for bit, name in ((1, "qs"), (2, "rs")):
+        if rc < 0 and -rc & bit:
             raise ValueError(f"{name} holds a row that is not ascending; "
                              "the kernel walks sorted signatures")
-    return N, False
+    _build.check(rc, entry)
 
 
 @_build.on_own_device
@@ -80,10 +105,7 @@ def minhash_dists(qs, rs):
         return _minhash_dists_plain(qs, rs)
     out = torch.empty((qs.shape[0], rs.shape[0]), dtype=torch.float32,
                       device=qs.device)
-    lib = _build.library()
-    _build.check(lib.ct_minhash_dists(
-        _build.ptr(qs), qs.shape[0], _build.ptr(rs), rs.shape[0], N,
-        _build.ptr(out), _build.stream_of(qs)), "minhash_dists")
+    _walk("ct_minhash_dists", qs, rs, N, _build.ptr(out))
     minhash_dists.launches += 1
     return out
 
@@ -100,11 +122,8 @@ def minhash_codes(qs, rs, cap_thr, cap_early):
         return _minhash_codes_plain(qs, rs, cap_thr, cap_early)
     out = torch.empty((qs.shape[0], rs.shape[0]), dtype=torch.uint8,
                       device=qs.device)
-    lib = _build.library()
-    _build.check(lib.ct_minhash_codes(
-        _build.ptr(qs), qs.shape[0], _build.ptr(rs), rs.shape[0], N,
-        int(cap_thr), int(cap_early), _build.ptr(out),
-        _build.stream_of(qs)), "minhash_codes")
+    _walk("ct_minhash_codes", qs, rs, N, int(cap_thr), int(cap_early),
+          _build.ptr(out))
     minhash_codes.launches += 1
     return out
 
@@ -123,10 +142,7 @@ def minhash_caps(qs, rs):
     out = torch.empty((qs.shape[0], rs.shape[0]),
                       dtype=torch.int32 if wide else torch.uint8,
                       device=qs.device)
-    lib = _build.library()
-    _build.check(lib.ct_minhash_caps(
-        _build.ptr(qs), qs.shape[0], _build.ptr(rs), rs.shape[0], N,
-        int(wide), _build.ptr(out), _build.stream_of(qs)), "minhash_caps")
+    _walk("ct_minhash_caps", qs, rs, N, int(wide), _build.ptr(out))
     minhash_caps.launches += 1
     return out
 
@@ -148,11 +164,11 @@ def minhash_assign(qs, rs, n_reps, cap_thr):
     Q = qs.shape[0]
     best = torch.empty(Q, dtype=torch.int64, device=qs.device)
     ok = torch.empty(Q, dtype=torch.bool, device=qs.device)
-    lib = _build.library()
-    _build.check(lib.ct_minhash_assign(
-        _build.ptr(qs), Q, _build.ptr(rs), int(n_reps), N, int(cap_thr),
-        _build.ptr(best), _build.ptr(ok), _build.stream_of(qs)),
-        "minhash_assign")
+    groups = -(-int(n_reps) // _GROUP)
+    part = torch.empty(Q * groups if groups > 1 else 0, dtype=torch.int64,
+                       device=qs.device)
+    _walk("ct_minhash_assign", qs, rs, int(n_reps), N, int(cap_thr),
+          _build.ptr(best), _build.ptr(ok), _build.ptr(part))
     minhash_assign.launches += 1
     return best, ok
 

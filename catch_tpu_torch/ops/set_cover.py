@@ -36,11 +36,12 @@ universes and empty intervals), and the fallback from a failed device
 solve to the host; a device solve that fails, or that reaches its
 dispatch bound without stopping, raises.  Kept: an instance whose
 position axis does not fit int32 is solved on the host, a size checked
-before any launch (_DEVICE_AXIS_LIMIT).  Every kernel wrapper runs its
-plain-PyTorch twin (same module, name suffixed _plain) for CPU tensors
-and its kernel for CUDA tensors, and counts its launches in an integer
-attribute `launches`; the wrappers are registered in
-scan_instance.KERNELS.
+before any launch (_DEVICE_AXIS_LIMIT); so is one whose K12 overlap
+index would not (_K12_PIECE_LIMIT, a limit catch_tpu does not have).
+Every kernel wrapper runs its plain-PyTorch twin (same module, name
+suffixed _plain) for CPU tensors and its kernel for CUDA tensors, and
+counts its launches in an integer attribute `launches`; the wrappers
+are registered in scan_instance.KERNELS.
 """
 
 import logging
@@ -83,6 +84,12 @@ _SCAN_TILE = 4096
 _K12_TILE = 256
 _K12_THREADS = 256
 _K12_STAGES = dict(recompute=1, score=2, decide=4, update=8)
+
+# K12's overlap index numbers its pieces (an interval cut to one tile)
+# with int32 offsets: an assembled instance whose index would hold this
+# many pieces or more is solved on the host (solve_boundary_instance),
+# as catch_tpu, whose _steps_jit_v2 builds no index, solves it.
+_K12_PIECE_LIMIT = np.iinfo(np.int32).max
 
 
 class SetCoverInstance:
@@ -856,8 +863,7 @@ def overlap_index(ivl_start, ivl_end, pair_bounds, set_bounds, univ_of_pair,
     dev = ivl_start.device
     M, P, S = ivl_start.numel(), pair_bounds.numel() - 1, \
         set_bounds.numel() - 1
-    n_pieces = torch.where(ivl_end > ivl_start,
-                           (ivl_end - 1) // tile - ivl_start // tile + 1, 0)
+    n_pieces = _k12_pieces(ivl_start, ivl_end, tile)
     piece_off = torch.zeros(M + 1, dtype=torch.int64, device=dev)
     piece_off[1:] = torch.cumsum(n_pieces, 0, dtype=torch.int64)
     pair_of_ivl = torch.repeat_interleave(
@@ -878,7 +884,7 @@ def overlap_index(ivl_start, ivl_end, pair_bounds, set_bounds, univ_of_pair,
     if overlapping:
         raise ValueError("a pair's intervals overlap; K12's update needs "
                          "them merged (disjoint, in start order)")
-    if n_total >= _DEVICE_AXIS_LIMIT:
+    if n_total >= _K12_PIECE_LIMIT:
         raise ValueError(f"{n_total} pieces do not fit the overlap "
                          "index's int32 offsets")
     piece_off = piece_off.to(torch.int32)
@@ -907,6 +913,21 @@ def overlap_index(ivl_start, ivl_end, pair_bounds, set_bounds, univ_of_pair,
     return dict(ivl_rec=ivl_rec, pair_of_ivl=ivl_rec[:, 2],
                 piece_off=piece_off, tile_ptr=tile_ptr, tile_ivl=tile_ivl,
                 max_pieces=max_pieces, max_pairs=max_pairs)
+
+
+def _k12_pieces(ivl_start, ivl_end, tile=_K12_TILE):
+    """The pieces of each interval in K12's overlap index: the tiles of
+    `tile` positions it meets (0 for an empty interval)."""
+    return torch.where(ivl_end > ivl_start,
+                       (ivl_end - 1) // tile - ivl_start // tile + 1, 0)
+
+
+def k12_piece_count(dev):
+    """The pieces K12's overlap index of the assembled instance `dev`
+    would hold (a Python int: one reduction on its device and one
+    readback), before any greedy launch."""
+    return int(_k12_pieces(dev["ivl_start"], dev["ivl_end"]).sum(
+        dtype=torch.int64))
 
 
 def _tile_lists_plain(ivl_start, piece_off, n_pieces, n_total, U, tile):
@@ -1199,12 +1220,29 @@ def solve_boundary_instance(dev, n_sets_real, max_dispatches=None):
     `max_dispatches` bounds the solve for throughput measurement: at
     most that many dispatches run, and the picks made so far come back.
 
+    Where K12's overlap index would hold _K12_PIECE_LIMIT pieces or more
+    (k12_piece_count), catch_tpu's host route runs instead, with its
+    warning and before any greedy launch: the merged rows are read back
+    (scan_instance.instance_to_host, with solver set ids) and solved by
+    the host lazy solver to the end, whatever max_dispatches says.
+    catch_tpu builds no index and solves such an instance on the device;
+    the picks are the same.
+
     Replaces catch_tpu/ops/set_cover.py solve_boundary_instance
     (:862-914).
     """
     if "ivl_start" not in dev:
         raise ValueError("the instance is not assembled; run "
                          "scan_instance.ensure_assembled first")
+    if k12_piece_count(dev) >= _K12_PIECE_LIMIT:
+        logger.warning("K12's overlap index exceeds int32; falling back "
+                       "to the host instance build")
+        S = dev["cost"].numel()
+        ids = np.arange(S)
+        inst = si.instance_to_host(
+            dev, ids, ids, S, dev["rank_idx"].cpu().numpy(),
+            dev["n_rank_vals"], dev["cost"].cpu().numpy())
+        return solve_instance(inst)
     covered = init_covered(dev["ivl_start"], dev["ivl_end"], dev["u_len"])
     state = initial_state(covered, dev["u_size"], dev["cost"].numel())
     bound = _dispatch_bound(n_sets_real, int(dev["n_rank_vals"]))
@@ -1232,6 +1270,7 @@ def assembled_instance(inst, device):
 
     dev = dict(merged=(put(key), put(inst.ivl_start - offsets[univ]),
                        put(inst.ivl_end - offsets[univ])),
+               b_pos=si.pack_width(int(np.diff(offsets).max(initial=0))),
                n_merged=len(key), offsets=offsets, nU=nU,
                u_size_host=np.asarray(inst.u_size),
                can_uncover_host=np.asarray(inst.can_uncover))

@@ -52,7 +52,9 @@ Phases (any failure exits non-zero and prints no result line):
      sequences, 135,880,000 bp): the clusters must equal
      flu10k_clusters.tsv.gz and the FASTA flu10k_design_large.fasta; the
      run goes under torch.profiler (CUDA activity only), which gives the
-     card's busy share, and keeps the inputs of the largest
+     card's busy share and, from the trace, each MinHash entry point's
+     kernel launches and summed device time beside its calls' smallest,
+     median and largest shapes; the run keeps the inputs of the largest
      near-duplicate group's minhash_sig call, of the last full greedy
      wave, of the largest minhash_caps call and of the largest cluster's
      pack_merged call;
@@ -60,11 +62,14 @@ Phases (any failure exits non-zero and prints no result line):
      corpus of bench.py:130-158 (2,700 mutated ebola genomes): 'choose'
      gives 'simple' (minhash_codes), and with fragments of 10,000 nt
      'hierarchical' (minhash_dists); both must equal their goldens;
+     each clustering's MinHash calls, their summed CUDA-event time and
+     their smallest, median and largest shapes;
  13. minhash_caps' four entry points, minhash_sig and pack_merged against
      their twins at those shapes (phase 11's group, wave, caps call and
      cluster, phase 12's fragments and the first FLU_ALL_PAIRS (4,096)
      flu10k sequences): exactly equal, the float32 distances bit for
-     bit; CUDA-event medians, min and max;
+     bit; CUDA-event medians, min and max; the inputs are saved to
+     build/chip_smoke/minhash_inputs.pt for tools/minhash_split.py;
  14. ebola175 m2 as in phase 5 with CATCH_TPU_SOLVE=device (stage E and
      the greedy steps on the card), counting launches: the FASTA must
      equal torch_ebola175_m2.fasta byte for byte, and assemble,
@@ -118,11 +123,14 @@ Phases (any failure exits non-zero and prints no result line):
      4 probe blocks and at least 3 corpus blocks; on the host solver's
      route, the device solver's, and the device solver's with the
      position-axis limit (set_cover._DEVICE_AXIS_LIMIT) patched below the
-     axis, which takes the host route: each FASTA must equal
-     torch_ebola175_m2.fasta byte for byte, the candidates and picks
-     phase 5's; build_table must have launched once per probe block,
-     rolling_hash, lookup_expand and verify_windows once per block pair,
-     pack_merged only on the host routes and assemble only on the
+     axis, which takes the host route, and the device solver's with
+     K12's piece limit (set_cover._K12_PIECE_LIMIT) patched below the
+     instance's pieces, which takes the host route after stage E: each
+     FASTA must equal torch_ebola175_m2.fasta byte for byte, the
+     candidates and picks phase 5's; build_table must have launched
+     once per probe block, rolling_hash, lookup_expand and
+     verify_windows once per block pair, pack_merged only on the host
+     routes, assemble only where stage E ran and greedy_v2 only on the
      device route;
  22. the splits at real size, scan only, at the unpatched limits:
      ebola175's candidates against ebola175 and 8 random genomes of
@@ -184,7 +192,9 @@ build/chip_smoke/.
 import contextlib
 import gzip
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -982,6 +992,120 @@ def recording(module, name, keep):
         setattr(module, name, fn)
 
 
+# The MinHash entry points, and the entry point of each template mode of
+# csrc/minhash_caps.cu's pair kernel (minhash_walk_kernel; before it,
+# minhash_pairs_kernel, modes 0-3).
+MINHASH_ENTRIES = ("minhash_sig", "minhash_assign", "minhash_caps",
+                   "minhash_dists", "minhash_codes")
+MINHASH_MODES = {"0": "minhash_dists", "1": "minhash_codes",
+                 "2": "minhash_caps", "3": "minhash_caps",
+                 "4": "minhash_assign"}
+# Phase 13's inputs, kept for tools/minhash_split.py.
+MINHASH_INPUTS = os.path.join(WORK, "minhash_inputs.pt")
+
+
+def minhash_entry(symbol):
+    """The MinHash entry point that launches the kernel of this
+    __global__ name (this design's or the one before it), "order check"
+    for the row-order pass that minhash_caps.cu's four entry points
+    share, None for another kernel."""
+    if "minhash_sig" in symbol:
+        return "minhash_sig"
+    if "minhash_order" in symbol:
+        return "order check"
+    if "minhash_assign" in symbol:
+        return "minhash_assign"
+    m = re.search(r"minhash_(?:pairs|walk)_kernel<(\d)>", symbol)
+    return MINHASH_MODES[m.group(1)] if m else None
+
+
+def call_shape(name, args):
+    """(U, n, H) of a minhash_sig call, (Q, n_reps, N) of minhash_assign,
+    (Q, R, N) of the others."""
+    if name == "minhash_sig":
+        return (args[0].shape[0], args[0].shape[1], args[1].shape[0])
+    if name == "minhash_assign":
+        return (args[0].shape[0], int(args[2]), args[0].shape[1])
+    return (args[0].shape[0], args[1].shape[0], args[0].shape[1])
+
+
+@contextlib.contextmanager
+def minhash_calls(torch, module, names, log, events=False):
+    """module's entry points `names` wrapped so that each call appends
+    (name, shape, events) to log; with `events`, two CUDA events on the
+    current stream bracket the call (else events is None)."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def wrapped(*args, **kwargs):
+            ev = None
+            if events:
+                ev = tuple(torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+                ev[0].record()
+            out = fn(*args, **kwargs)
+            if events:
+                ev[1].record()
+            log.append((name, call_shape(name, args), ev))
+            return out
+        return wrapped
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def trace_minhash_ms(path):
+    """{entry point or "order check": (kernel launches, summed device
+    ms)} of the MinHash kernels in a chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            name = minhash_entry(e.get("name", ""))
+            if name:
+                n, ms = out.get(name, (0, 0.0))
+                out[name] = (n + 1, ms + e["dur"] / 1e3)
+    return out
+
+
+def minhash_totals(torch, what, log, device_ms=None):
+    """Print, for each MinHash entry point called in `log`, its calls,
+    its summed time and its smallest, median and largest call by work
+    (Q x R x N or U x n x H): the kernels' launches and device ms from
+    `device_ms` (trace_minhash_ms) where given, else the calls' CUDA
+    events (the whole wrapper call, its order check included).  Returns
+    {entry point: (calls, summed ms)}."""
+    torch.cuda.synchronize()
+    out = {}
+    for name in MINHASH_ENTRIES:
+        calls = sorted(((shape, ev) for n, shape, ev in log if n == name),
+                       key=lambda c: math.prod(c[0]))
+        if not calls:
+            continue
+        if device_ms is not None:
+            n_k, ms = device_ms.get(name, (0, 0.0))
+            how = f"{n_k} kernel launches, {ms:.4f} device ms summed"
+        else:
+            ms = sum(a.elapsed_time(b) for _, (a, b) in calls)
+            how = f"{ms:.4f} ms summed over the calls' CUDA events"
+        shapes = [calls[0][0], calls[len(calls) // 2][0], calls[-1][0]]
+        print(f"{what}: {name}: {len(calls)} calls, {how}; shapes "
+              f"smallest {shapes[0]}, median {shapes[1]}, largest "
+              f"{shapes[2]}", flush=True)
+        out[name] = (len(calls), ms)
+    if device_ms and "order check" in device_ms:
+        n_k, ms = device_ms["order check"]
+        print(f"{what}: the row-order check: {n_k} kernel launches, "
+              f"{ms:.4f} device ms summed", flush=True)
+    return out
+
+
 def device_busy(path, since=None):
     """(device events, busy seconds, seconds by kind) of a chrome trace:
     the union of the card's kernel, copy and set intervals (those that
@@ -1034,7 +1158,11 @@ def run_design_large(torch, si, profiling, n_genomes, name, profile=False):
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]) if profile \
         else contextlib.nullcontext()
-    with recording(cluster, "cluster_with_minhash_signatures",
+    mh_log = []
+    with minhash_calls(torch, cluster, ["minhash_assign", "minhash_caps"],
+                       mh_log), \
+            minhash_calls(torch, lsh, ["minhash_sig"], mh_log), \
+            recording(cluster, "cluster_with_minhash_signatures",
                    lambda a, k, r: calls.append(
                        (len(a[0]), k["cluster_method"], r))), \
             recording(cluster, "signature_matrix",
@@ -1067,6 +1195,8 @@ def run_design_large(torch, si, profiling, n_genomes, name, profile=False):
               f"{n_ev} device events; the card busy {busy:.4f} s of the "
               f"{wall:.3f} s wall, {100 * busy / wall:.4f}% ({kinds})",
               flush=True)
+        minhash_totals(torch, f"{name} MinHash totals (trace)", mh_log,
+                       trace_minhash_ms(trace))
     golden = os.path.join(GOLDEN, f"{name}_clusters.tsv.gz")
     if os.path.exists(golden):
         if cluster_ranks(clusters, n_seqs) != read_cluster_ranks(golden):
@@ -1105,12 +1235,15 @@ def cluster_scale(torch, si, profiling, device):
         pb = ProbeDesigner([genomes], [], probe_length=100, probe_stride=50,
                            cluster_threshold=0.15, cluster_method="choose",
                            cluster_fragment_length=frag, device=device)
-        calls, sigs = [], []
+        calls, sigs, mh_log = [], [], []
         with recording(cluster, "cluster_with_minhash_signatures",
                        lambda a, k, r: calls.append(
                            (len(a[0]), k["cluster_method"], r))), \
                 recording(cluster, "signature_matrix",
-                          lambda a, k, r: sigs.append(r)):
+                          lambda a, k, r: sigs.append(r)), \
+                minhash_calls(torch, cluster, ["minhash_dists",
+                                               "minhash_codes"],
+                              mh_log, events=True):
             _, wall, launches, peak = counted(torch, si, profiling,
                                               pb._cluster_genomes)
         (n, got, clusters), = calls
@@ -1124,9 +1257,22 @@ def cluster_scale(torch, si, profiling, device):
               f"{wall:.3f} s; peak allocated device memory "
               f"{peak / 2**20:.1f} MiB; launches {launches}", flush=True)
         print_phases(profiling, ("cluster",))
+        minhash_totals(torch, f"scale corpus ({method}) MinHash totals",
+                       mh_log)
         require_launched(launches, [kernel], f"the {method} clustering")
         out[kernel] = (launches[kernel], sigs[-1])
     return out
+
+
+def save_minhash_inputs(torch, kept, frag_sigs, flu_sigs):
+    """Phase 13's inputs, on the CPU, to MINHASH_INPUTS: the arguments
+    of the kept minhash_sig, minhash_assign and minhash_caps calls, and
+    the two all-pairs signature matrices."""
+    torch.save({k: tuple(x.cpu() if hasattr(x, "cpu") else x for x in v)
+                for k, v in dict(sig=kept["sig"], assign=kept["assign"],
+                                 caps=kept["caps"], frag_sigs=(frag_sigs,),
+                                 flu_sigs=(flu_sigs,)).items()},
+               MINHASH_INPUTS)
 
 
 def check_minhash_kernels(torch, si, kept, frag_sigs, flu_sigs):
@@ -1138,6 +1284,7 @@ def check_minhash_kernels(torch, si, kept, frag_sigs, flu_sigs):
     from catch_tpu_torch.ops import minhash as mh
     from catch_tpu_torch.utils import cluster
 
+    save_minhash_inputs(torch, kept, frag_sigs, flu_sigs)
     codes, ab = kept["sig"]
     (U, n), H = codes.shape, ab.shape[0]
     wave, reps, n_reps, cap_thr = kept["assign"]
@@ -1752,25 +1899,35 @@ BLOCK_LIMIT = 1 << 20   # phase 21's _BLOCK_PAIR_KEYS and _BLOCK_POSITIONS
 def blocked_design(torch, si, profiling, in175, stats5):
     """Phase 21: ebola175 m2 through the CLI with both block constants
     patched to 2^20 (4 probe blocks, 4 corpus blocks), on the host
-    solver's route, the device solver's, and the device solver's with
-    the position-axis limit patched below the axis (so the host route
-    takes over).  Every FASTA must equal torch_ebola175_m2.fasta, the
-    candidates and picks phase 5's; build_table once per probe block,
-    rolling_hash, lookup_expand and verify_windows once per block pair,
-    and pack_merged only where the host solver ran."""
+    solver's route, the device solver's, the device solver's with the
+    position-axis limit patched below the axis (so the host route takes
+    over before stage E), and the device solver's with K12's piece
+    limit patched below the instance's pieces (so the host route takes
+    over after stage E, before any greedy step).  Every FASTA must equal
+    torch_ebola175_m2.fasta, the candidates and picks phase 5's;
+    build_table once per probe block, rolling_hash, lookup_expand and
+    verify_windows once per block pair, assemble only where stage E ran,
+    pack_merged only where the host solver ran, and greedy_v2 only
+    where the device solver ran."""
     from catch_tpu_torch.ops import set_cover as sct
 
     blocks = []
-    for route, axis, on_card in (
-            ("host solver", sct._DEVICE_AXIS_LIMIT, False),
-            ("device solver", sct._DEVICE_AXIS_LIMIT, True),
-            ("device solver, axis limit 1000", 1000, False)):
+    for route, axis, pieces, assembled, on_card in (
+            ("host solver", sct._DEVICE_AXIS_LIMIT, sct._K12_PIECE_LIMIT,
+             False, False),
+            ("device solver", sct._DEVICE_AXIS_LIMIT, sct._K12_PIECE_LIMIT,
+             True, True),
+            ("device solver, axis limit 1000", 1000, sct._K12_PIECE_LIMIT,
+             False, False),
+            ("device solver, K12 piece limit 1000", sct._DEVICE_AXIS_LIMIT,
+             1000, True, False)):
         out = os.path.join(WORK, f"ebola175_m2_blocks_{len(blocks)}.fasta")
         ctx = solve_on_device() if route.startswith("device") \
             else contextlib.nullcontext()
         with patched(si, "_BLOCK_PAIR_KEYS", BLOCK_LIMIT), \
                 patched(si, "_BLOCK_POSITIONS", BLOCK_LIMIT), \
-                patched(sct, "_DEVICE_AXIS_LIMIT", axis), ctx, recording(
+                patched(sct, "_DEVICE_AXIS_LIMIT", axis), \
+                patched(sct, "_K12_PIECE_LIMIT", pieces), ctx, recording(
                     si, "scan_to_boundary_instance",
                     lambda a, k, r: blocks.append(a[0].stats["blocks"])):
             pb, wall, launches, peak = counted(
@@ -1794,10 +1951,12 @@ def blocked_design(torch, si, profiling, in175, stats5):
                 "lookup_expand": pairs,
                 "verify_windows": pairs, "segmented_merge": 2 * n_p + 1,
                 "pack_merged": 0 if on_card else 1,
-                "assemble": 1 if on_card else 0}
+                "assemble": 1 if assembled else 0}
         for name, n in want.items():
             if launches[name] != n:
                 fail(f"{what}: {launches[name]} launches of {name}, not {n}")
+        if (launches["greedy_v2"] > 0) != on_card:
+            fail(f"{what}: {launches['greedy_v2']} launches of greedy_v2")
         print(f"{what}: {len(pb.final_probes)} probes, equal to golden; "
               f"{n_p} probe blocks x {n_c} corpus blocks; {got[0]} "
               f"candidates and {got[1]} picks, as unsplit; wall {wall:.3f} "
@@ -2461,7 +2620,7 @@ def main():
         rows.append(r)
     clock.done(20)
 
-    # Phase 21: ebola175 m2 in blocks, both solver routes and the axis.
+    # Phase 21: ebola175 m2 in blocks, both solver routes and the limits.
     blocked_design(torch, si, profiling, in175, stats5)
     clock.done(21)
 

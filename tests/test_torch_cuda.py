@@ -12,7 +12,9 @@ window fast path, islands, several chromosomes, sequences shorter than
 the probes, merge buckets of every tier (the block tier forced small),
 ties, touching and nested spans, the ends of the key and position
 ranges, the span scan without minimizers (w = 1) and in
-many expansion slabs, and empty inputs; for verify_windows' mask
+many expansion slabs, and empty inputs; for the MinHash kernels, tiles
+and groups of 32 left part full, one query, runs of duplicates, N from
+1 to 1536, ties across groups, and K8's edge values; for verify_windows' mask
 kernels, probe lengths 75 to 250, every alignment mod 16, K from 0 to
 62, a corpus with no tail pad or not 16-byte aligned, and alphabets of
 more than four codes with 'N' and PAD; for greedy_v2, a set of more
@@ -760,6 +762,105 @@ def test_minhash_sig_equals_twin(cuda):
     want = mh._minhash_sig_plain(codes.to(cuda), ab.to(cuda))
     _assert_equal((got,), (want,))
     assert torch.equal(got.cpu(), mh._minhash_sig_plain(codes, ab))
+
+
+def _runs(seed, n, N):
+    """n ascending int32 rows of width N made of a few values in long
+    runs (duplicates inside rows, ties between pairs)."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, max(2, N // 8), size=(n, max(1, N // 16)))
+    rows = np.take_along_axis(vals, rng.integers(0, vals.shape[1],
+                                                 size=(n, N)), 1)
+    return torch.from_numpy(np.sort(rows, axis=1).astype(np.int32))
+
+
+@pytest.mark.parametrize("N", [1, 255, 256, 1536])
+@pytest.mark.parametrize("kind", ["wide", "runs"])
+@pytest.mark.parametrize("Q,R", [(1, 70), (37, 33), (65, 100), (130, 1)],
+                         ids=["Q1", "Q37_R33", "Q65_R100", "Q130_R1"])
+def test_minhash_walk_tiles_equal_twins(cuda, N, kind, Q, R):
+    """K7's walk where the queries and representatives fill no whole
+    tile or group of 32, one query, long runs of duplicates, N up to
+    _MAX_N: the four entry points equal their twins exactly, a
+    representative set of more than one group with a tie across groups
+    included."""
+    from catch_tpu_torch.ops import minhash as mh
+
+    if kind == "wide":
+        qs, rs = _signatures(5, Q, N, 2**31 - 1), _signatures(6, R, N,
+                                                              2**31 - 1)
+    else:
+        qs, rs = _runs(5, Q, N), _runs(6, R, N)
+    if R > 64:
+        # the first query's row in a lane of three groups: the first wins
+        rs[3] = rs[40] = rs[R - 1] = qs[0]
+    qs, rs = qs.to(cuda), rs.to(cuda)
+    thr, early = max(1, N // 3), max(1, N // 2)
+    for kernel, twin, args in (
+            (mh.minhash_dists, mh._minhash_dists_plain, ()),
+            (mh.minhash_codes, mh._minhash_codes_plain, (thr, early)),
+            (mh.minhash_caps, mh._minhash_caps_plain, ())):
+        got = kernel(qs, rs, *args)
+        torch.cuda.synchronize()
+        want = twin(qs, rs, *args)
+        assert got.dtype == want.dtype
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    for n_reps in sorted({0, 1, min(R, 32), min(R, 33), R}):
+        got = mh.minhash_assign(qs, rs, n_reps, thr)
+        torch.cuda.synchronize()
+        _assert_equal(got, mh._minhash_assign_plain(qs, rs, n_reps, thr))
+        if R > 64 and n_reps == R:
+            # the first query's row is in lanes 3, 40 and R - 1: the best
+            # of the first query is one of them or an earlier equal row
+            assert int(got[0][0]) <= 3 and bool(got[1][0])
+
+
+def test_minhash_walk_raises_past_n_reps_and_not_at_n1(cuda):
+    """The one order pass checks every row it is given: an unsorted
+    representative row past n_reps raises; one column has no order."""
+    from catch_tpu_torch.ops import minhash as mh
+
+    sigs = _signatures(7, 40, 64, 10**6).to(cuda)
+    bad = sigs.clone()
+    bad[39] = torch.flip(bad[39], [0])
+    with pytest.raises(ValueError, match="rs holds a row that is not"):
+        mh.minhash_assign(sigs, bad, 5, 3)
+    with pytest.raises(ValueError, match="qs holds a row that is not"):
+        mh.minhash_assign(bad, bad, 5, 3)
+    one = torch.tensor([[5], [3], [5]], dtype=torch.int32, device=cuda)
+    _assert_equal((mh.minhash_caps(one, one),),
+                  (mh._minhash_caps_plain(one, one),))
+
+
+@pytest.mark.parametrize("case", ["edges", "n1_h7", "h_not_x4", "many_h",
+                                  "long_rows"])
+def test_minhash_sig_fold_cases_equal_twin(cuda, case):
+    """K8 with a = p, b = p, codes 0 and p - 1, one code a row, H not a
+    multiple of the hash functions a thread takes, more hash functions
+    than a block's threads, and rows longer than a staged chunk."""
+    from catch_tpu_torch.ops import minhash as mh
+
+    rng = np.random.default_rng(9)
+    p = mh.MERSENNE_P
+    U, n, H = {"edges": (40, 91, 16), "n1_h7": (33, 1, 7),
+               "h_not_x4": (300, 91, 75), "many_h": (9, 30, 1030),
+               "long_rows": (7, 700, 6)}[case]
+    codes = rng.integers(0, p, size=(U, n))
+    ab = np.stack([rng.integers(1, p + 1, size=H),
+                   rng.integers(0, p + 1, size=H)], 1)
+    if case == "edges":
+        codes[0], codes[1] = 0, p - 1
+        codes[2, ::2] = 0
+        codes[3, ::3] = p - 1
+        ab[:4] = [[p, p], [p, 0], [1, p], [p, p - 1]]
+        ab[4:8, 1] = p
+    codes = torch.from_numpy(codes.astype(np.int32)).to(cuda)
+    ab = torch.from_numpy(ab.astype(np.int32)).to(cuda)
+    got = mh.minhash_sig(codes, ab)
+    torch.cuda.synchronize()
+    _assert_equal((got,), (mh._minhash_sig_plain(codes, ab),))
+    if case == "edges":
+        assert not got[:, 0].any()
 
 
 # ----------------------------------------------------------------------
