@@ -51,19 +51,20 @@ _SIGNATURES = {
                     _P, _P, _P, _I32, _P],
     "ct_max_pair": [_P, _P, _I64, _P, _P],
     "ct_dd_run": [_P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _I32, _P],
-    "ct_unique_flags": [_P, _I64, _P, _P],
     "ct_vw_mask": [_P, _I64, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
                    _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I64, _P,
                    _P, _P],
     "ct_vw_emit": [_P, _I64, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
                    _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I64, _P,
                    _P, _P, _P, _P, _P],
-    "ct_verify_spans_count": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
-                              _I32, _I32, _I32, _I32, _P, _P],
-    "ct_verify_spans_emit": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
-                             _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P],
-    "ct_expand_join": [_P, _P, _P, _P, _I64, _P, _P, _I64, _P, _P],
-    "ct_join_emit": [_P, _P, _P, _I64, _I64, _P, _P, _P],
+    "ct_vs_mask": [_P, _I64, _P, _I64, _I32, _P, _P, _P, _P, _P, _P, _I64,
+                   _I32, _I32, _I32, _I32, _P, _P, _P],
+    "ct_vs_emit": [_P, _I64, _P, _I64, _I32, _P, _P, _P, _P, _P, _P, _I64,
+                   _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P],
+    "ct_ej_keys": [_P, _P, _P, _I64, _I64, _P, _P],
+    "ct_ej_run": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _I64,
+                  _I64, _I32, _P, _P, _I64, _P, _I64, _I64, _P, _P, _P, _P,
+                  _P, _P, _P, _I32, _P],
     "ct_sm_bounds": [_P, _P, _P, _I64, _P, _P],
     "ct_sm_run": [_P, _P, _P, _I64, _I64, _I32, _I64, _I32, _I32, _I32, _I32,
                   _P, _P, _P, _P, _P, _P, _I32, _P],

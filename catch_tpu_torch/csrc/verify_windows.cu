@@ -1,6 +1,6 @@
 // K3 verify_windows: window verification of (probe, alignment) pairs
 // into extended, universe-local cover spans; and K6 verify_spans: the
-// same windows, unmerged, in corpus coordinates.
+// same windows, unmerged, in corpus coordinates.  Both run one core.
 //
 // K3 replaces catch_tpu/ops/scan_instance.py _stage_c_jit (:382-530) and
 // computes what it computes.  For candidate (probe p, alignment a) the
@@ -16,6 +16,14 @@
 // extended, clamped to the chromosome and keyed probe * nU + universe
 // (:512-530).
 //
+// K6 replaces catch_tpu/ops/scan_sparse.py _verify_chunk/_verify_core
+// (:65-154): the same window math, but each candidate comes with its
+// fields (probe, clipped start, its offset into the probe, overlap,
+// threshold, sequence length), so there is no search over the
+// sequences, and its spans are [a + P[t] + 1, a + P[t+K+1]) in corpus
+// coordinates, not extended; its fast path gives [start, start + ov)
+// where the band's matches reach max(thres - K, k_seed).
+//
 // What bounds it on the H100: bytes, about 16 a pair in and 24 a span
 // out (ebola175: 3,540,645 pairs, 3,670,370 spans, 0.045 ms at the
 // NVIDIA H100 SXM's published 3.35 TB/s, 700 W).  The 3.3 MB corpus and
@@ -24,11 +32,11 @@
 // L2 a candidate at a time: about 0.1 ms of ebola175's mask kernel is
 // those loads, whether a thread loads its own band or eight lanes load
 // it together (tried; no faster).  So each band is walked once, wide:
-//   1. ct_vw_mask, a thread a candidate: the corpus is read 16 bytes a
-//      load at 16-aligned addresses (a byte loop took a load a byte); the
-//      probe row, which the warp's candidates share (pairs come sorted
-//      by probe), as aligned words realigned with __funnelshift_r.  Four
-//      codes are compared per instruction (a xor, then a carry-free
+//   1. the mask kernel, a thread a candidate: the corpus is read 16 bytes
+//      a load at 16-aligned addresses (a byte loop took a load a byte);
+//      the probe row, which the warp's candidates share (pairs come
+//      sorted by probe), as aligned words realigned with __funnelshift_r.
+//      Four codes are compared per instruction (a xor, then a carry-free
 //      "byte is nonzero" test, which holds for any of the 255 codes and
 //      keeps PAD, code 0, from matching), and a multiply folds each
 //      4-byte compare into 4 bits of the mismatch mask, 32 positions a
@@ -40,80 +48,51 @@
 //      count goes to counts.
 //   2. torch.cumsum turns the counts into offsets in place, and the
 //      wrapper reads the total.
-//   3. ct_vw_emit: each candidate with spans reads its mask words back
-//      (not the corpus) and walks the same state again, writing its
+//   3. the emit kernel: each candidate with spans reads its mask words
+//      back (not the corpus) and walks the same state again, writing its
 //      spans from its offset.  Its loads are all issued before the
 //      branch on its count (both kernels wait on memory more than they
 //      compute: halving their occupancy doubles their time).
 // The window state holds the last K+2 entries of P.  For K <= VW_KREG
 // the kernels are instantiated per K and the entries are registers,
 // shifted one place a mismatch; above it (to K = 62) they are a ring of
-// 64 entries a thread in shared memory, indexed with & 63.  Positions
-// are 32-bit inside the kernels (the wrapper checks that mega has fewer
-// than 2^31 bytes).  Where a candidate's loads would reach past either
-// end of mega or codes, it reads the bytes inside one by one, so the
-// contract stays "mega readable at [a, a + L)".
+// 64 entries a thread in shared memory, indexed with & 63.  A job type
+// (VwParams for K3, VsParams for K6) gives the kernels a candidate's
+// fields and writes its spans; the mask core (VwMask, vw_build,
+// VwWindows, vw_feed, vw_close) is one.  A candidate's alignment and
+// its base address are 64-bit; its positions from the alignment are
+// 32-bit.  K3's wrapper checks that mega has fewer than 2^31 bytes (its
+// keys and positions are 32-bit elsewhere); K6 takes any corpus.  Where
+// a candidate's loads would reach past either end of mega or codes, it
+// reads the bytes inside one by one, so the contract stays "mega
+// readable at [a, a + L)".
 #include "common.cuh"
 
 #define CT_KMAX 62      // largest mismatch count K
-#define VW_THREADS 128  // threads a block of the K3 kernels
+#define VW_THREADS 128  // threads a block of the kernels
 #define VW_KREG 7       // largest K whose window state is in registers
 #define VW_RING 64      // entries of the shared-memory ring above it
 #define VW_KEEP 4       // mask words a thread keeps in registers (L <= 113)
 
-struct VwParams {
+// What the mask core reads: the corpus and the probe rows.
+struct VwSrc {
     const uint8_t* mega;      // corpus codes, 0 = PAD
     int64_t n_mega;           // its bytes
-    const uint8_t* codes;     // probe codes [P, L] in solver order
+    const uint8_t* codes;     // probe codes [P, L]
     int64_t n_codes;          // its bytes
-    const int64_t* lens;      // probe lengths [P]
-    const int64_t* pc;        // candidate probe ids [n]
-    const int64_t* ac;        // candidate alignments [n]
-    int64_t n;
-    const int64_t* seq_starts;
-    const int64_t* seq_ends;
-    const int64_t* seq_lens;
-    const int64_t* chrom_off;
-    const int64_t* univ_of_seq;
-    int n_seqs;
-    int L, K, k_seed, lcf, seed_req, fast_ok, ext;
-    int64_t nU;
+    int L;
 };
 
 // One candidate's fields; positions relative to its alignment a.
 struct Cand {
-    int p, a, sid, i_lo, i_hi, thres;
+    int64_t a;
+    int p, sid, i_lo, i_hi, thres;
     bool fast;
 };
 
-// Fills c for the candidate (p, a); false when its threshold is <= 0
-// (no span).
-__device__ __forceinline__ bool vw_candidate(const VwParams& v, int p, int a,
-                                             Cand& c) {
-    c.p = p;
-    c.a = a;
-    int lo = 0, hi = v.n_seqs;           // searchsorted(seq_ends, a, right)
-    while (lo < hi) {
-        const int m = (lo + hi) >> 1;
-        if (v.seq_ends[m] <= c.a) lo = m + 1; else hi = m;
-    }
-    c.sid = lo < v.n_seqs - 1 ? lo : v.n_seqs - 1;
-    const int s_lo = (int)v.seq_starts[c.sid];
-    const int s_hi = (int)v.seq_ends[c.sid];
-    const int plen = (int)v.lens[c.p];
-    const int start = c.a > s_lo ? c.a : s_lo;
-    const int en = s_hi < c.a + plen ? s_hi : c.a + plen;
-    const int n_seq = s_hi - s_lo;
-    c.thres = min(min(v.lcf, plen), n_seq);
-    c.i_lo = start - c.a;
-    c.i_hi = en - c.a > c.i_lo ? en - c.a : c.i_lo;
-    c.fast = v.fast_ok && (n_seq >= v.L || (v.K == 0 && n_seq >= v.k_seed));
-    return c.thres > 0;
-}
-
 // The band's first byte lies off bytes above a 16-aligned address; the
 // mask of a band of `band` positions takes this many 32-bit words.
-__device__ __forceinline__ int vw_off(const VwParams& v, const Cand& c) {
+__device__ __forceinline__ int vw_off(const VwSrc& v, const Cand& c) {
     return (int)((uintptr_t)(v.mega + c.a + c.i_lo) & 15);
 }
 
@@ -171,7 +150,7 @@ struct VwMask {
     bool inside;                // every load lies inside mega and codes
     uint32_t prev;              // the last probe word loaded
 
-    __device__ VwMask(const VwParams& v, const Cand& c) {
+    __device__ VwMask(const VwSrc& v, const Cand& c) {
         off = vw_off(v, c);
         A0 = (uintptr_t)(v.mega + c.a + c.i_lo) - off;
         m_lo = (uintptr_t)v.mega;
@@ -337,17 +316,17 @@ __device__ __forceinline__ int vw_close(W& win, const Cand& c, int seed_req,
 // most K mismatches, so a band with fewer than thres - K matches has
 // none, and is not walked (ebola175: the 7.7% of candidates with 33 or
 // more mismatches, which held the walk of a warp up).
-template <int KT>
+template <int KT, class Job>
 __global__ void __launch_bounds__(VW_THREADS)
-vw_mask_kernel(VwParams v, int64_t* __restrict__ counts,
+vw_mask_kernel(const Job v, int64_t* __restrict__ counts,
                uint32_t* __restrict__ masks) {
     extern __shared__ int vw_ring[];
     const int64_t i = (int64_t)blockIdx.x * VW_THREADS + threadIdx.x;
     if (i >= v.n) return;
     Cand c;
     int cnt = 0;
-    if (vw_candidate(v, (int)v.pc[i], (int)v.ac[i], c)) {
-        VwMask m(v, c);
+    if (v.candidate(v.fields(i), c)) {
+        VwMask m(v.src, c);
         const int band = c.i_hi - c.i_lo;
         const int nw = vw_words(m.off, band);
         uint32_t keep[VW_KEEP];
@@ -375,47 +354,34 @@ vw_mask_kernel(VwParams v, int64_t* __restrict__ counts,
 }
 
 // Pass 3: the spans of each candidate that has any, from its mask words,
-// written from its offset.
-template <int KT>
+// written from its offset by the job's Emit.
+template <int KT, class Job>
 __global__ void __launch_bounds__(VW_THREADS)
-vw_emit_kernel(VwParams v, const int64_t* __restrict__ off_incl,
-               const uint32_t* __restrict__ masks, int64_t* __restrict__ key,
-               int64_t* __restrict__ s, int64_t* __restrict__ e) {
+vw_emit_kernel(const Job v, const int64_t* __restrict__ off_incl,
+               const uint32_t* __restrict__ masks,
+               const typename Job::Out out) {
     extern __shared__ int vw_ring[];
     const int64_t i = (int64_t)blockIdx.x * VW_THREADS + threadIdx.x;
     if (i >= v.n) return;
     // Every load the candidate needs before the branch on its count, so
     // that they wait on memory together.
-    int64_t o = i ? off_incl[i - 1] : 0;
+    const int64_t o = i ? off_incl[i - 1] : 0;
     const int64_t o_end = off_incl[i];
-    const int p = (int)v.pc[i], a = (int)v.ac[i];
-    const int rows = (v.L + 46) >> 5;     // the words a candidate has
+    const typename Job::Fields f = v.fields(i);
+    const int rows = (v.src.L + 46) >> 5;     // the words a candidate has
     uint32_t keep[VW_KEEP];
 #pragma unroll
     for (int w = 0; w < VW_KEEP; ++w)
         keep[w] = w < rows ? masks[w * v.n + i] : 0u;
     if (o == o_end) return;
     Cand c;
-    vw_candidate(v, p, a, c);
-    const int64_t base = v.seq_starts[c.sid] - c.a;
-    const int64_t seq_len = v.seq_lens[c.sid];
-    const int64_t coff = v.chrom_off[c.sid];
-    const int64_t k = (int64_t)c.p * v.nU + v.univ_of_seq[c.sid];
-    auto emit = [&](int left, int right) {
-        int64_t es = left + 1 - base - v.ext;
-        int64_t ee = right - base + v.ext;
-        es = es > 0 ? es : 0;
-        ee = ee < seq_len ? ee : seq_len;
-        key[o] = k;
-        s[o] = es + coff;
-        e[o] = ee + coff;
-        ++o;
-    };
+    v.candidate(f, c);
+    typename Job::Emit emit(v, c, out, o);
     if (c.fast) {
         emit(c.i_lo - 1, c.i_hi);
         return;
     }
-    const int off = vw_off(v, c);
+    const int off = vw_off(v.src, c);
     const int nw = vw_words(off, c.i_hi - c.i_lo);
     VwWindows<KT> win(c.i_lo - 1, v.K, vw_ring + threadIdx.x);
     const int j0 = c.i_lo - off;
@@ -427,34 +393,125 @@ vw_emit_kernel(VwParams v, const int64_t* __restrict__ off_incl,
     vw_close(win, c, v.seed_req, emit);
 }
 
-template <int KT>
-static void vw_launch(const VwParams& v, const int64_t* off_incl,
-                      uint32_t* masks, int64_t* counts, int64_t* key,
-                      int64_t* s, int64_t* e, cudaStream_t st) {
+template <int KT, class Job>
+static void vw_launch(const Job& v, const int64_t* off_incl, uint32_t* masks,
+                      int64_t* counts, const typename Job::Out& out,
+                      cudaStream_t st) {
     const size_t smem = KT < 0 ? VW_RING * VW_THREADS * sizeof(int) : 0;
     const unsigned nb = ct_blocks(v.n, VW_THREADS);
     if (off_incl)
-        vw_emit_kernel<KT><<<nb, VW_THREADS, smem, st>>>(v, off_incl, masks,
-                                                         key, s, e);
+        vw_emit_kernel<KT, Job><<<nb, VW_THREADS, smem, st>>>(v, off_incl,
+                                                              masks, out);
     else
-        vw_mask_kernel<KT><<<nb, VW_THREADS, smem, st>>>(v, counts, masks);
+        vw_mask_kernel<KT, Job><<<nb, VW_THREADS, smem, st>>>(v, counts,
+                                                              masks);
 }
 
 // The mask pass (off_incl null) or the emit pass, instantiated for K.
-static void vw_run(const VwParams& v, const int64_t* off_incl,
-                   uint32_t* masks, int64_t* counts, int64_t* key,
-                   int64_t* s, int64_t* e, cudaStream_t st) {
+template <class Job>
+static int vw_run(const Job& v, const int64_t* off_incl, uint32_t* masks,
+                  int64_t* counts, const typename Job::Out& out,
+                  void* stream) {
+    if (v.K < 0 || v.K > CT_KMAX) return (int)cudaErrorInvalidValue;
+    if (v.n <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = ct_stream(stream);
     switch (v.K) {
 #define VW_CASE(k) \
-        case k: vw_launch<k>(v, off_incl, masks, counts, key, s, e, st); break;
+        case k: vw_launch<k>(v, off_incl, masks, counts, out, st); break;
         VW_CASE(0) VW_CASE(1) VW_CASE(2) VW_CASE(3)
         VW_CASE(4) VW_CASE(5) VW_CASE(6) VW_CASE(7)
 #undef VW_CASE
-        default: vw_launch<-1>(v, off_incl, masks, counts, key, s, e, st);
+        default: vw_launch<-1>(v, off_incl, masks, counts, out, st);
     }
+    return (int)cudaGetLastError();
 }
 static_assert(VW_KREG == 7, "vw_run instantiates K = 0..VW_KREG");
 static_assert(VW_RING >= CT_KMAX + 2, "the ring holds K + 2 entries");
+
+// ----------------------------------------------------------------------
+// K3 verify_windows
+// ----------------------------------------------------------------------
+
+// K3's job: a candidate is (pc[i], ac[i]); its sequence is found by a
+// binary search over the sequence ends, and its spans are extended,
+// clamped to the chromosome and keyed probe * nU + universe.
+struct VwParams {
+    VwSrc src;
+    const int64_t* lens;      // probe lengths [P]
+    const int64_t* pc;        // candidate probe ids [n]
+    const int64_t* ac;        // candidate alignments [n]
+    int64_t n;
+    const int64_t* seq_starts;
+    const int64_t* seq_ends;
+    const int64_t* seq_lens;
+    const int64_t* chrom_off;
+    const int64_t* univ_of_seq;
+    int n_seqs;
+    int K, k_seed, lcf, seed_req, fast_ok, ext;
+    int64_t nU;
+
+    struct Fields {
+        int p, a;
+    };
+    struct Out {
+        int64_t *key, *s, *e;
+    };
+
+    __device__ __forceinline__ Fields fields(int64_t i) const {
+        return Fields{(int)pc[i], (int)ac[i]};
+    }
+
+    // Fills c for the candidate (p, a); false when its threshold is <= 0
+    // (no span).
+    __device__ __forceinline__ bool candidate(const Fields& f,
+                                              Cand& c) const {
+        const int a = f.a;
+        c.p = f.p;
+        c.a = a;
+        int lo = 0, hi = n_seqs;         // searchsorted(seq_ends, a, right)
+        while (lo < hi) {
+            const int m = (lo + hi) >> 1;
+            if (seq_ends[m] <= a) lo = m + 1; else hi = m;
+        }
+        c.sid = lo < n_seqs - 1 ? lo : n_seqs - 1;
+        const int s_lo = (int)seq_starts[c.sid];
+        const int s_hi = (int)seq_ends[c.sid];
+        const int plen = (int)lens[c.p];
+        const int start = a > s_lo ? a : s_lo;
+        const int en = s_hi < a + plen ? s_hi : a + plen;
+        const int n_seq = s_hi - s_lo;
+        c.thres = min(min(lcf, plen), n_seq);
+        c.i_lo = start - a;
+        c.i_hi = en - a > c.i_lo ? en - a : c.i_lo;
+        c.fast = fast_ok && (n_seq >= src.L || (K == 0 && n_seq >= k_seed));
+        return c.thres > 0;
+    }
+
+    // Writes window [left + 1, right) of candidate c, extended and
+    // clamped, at out[o], o counting up from the candidate's offset.
+    struct Emit {
+        const Out out;
+        int64_t o, base, seq_len, coff, key;
+        int ext;
+
+        __device__ Emit(const VwParams& v, const Cand& c, const Out& out_,
+                        int64_t o_)
+            : out(out_), o(o_), base(v.seq_starts[c.sid] - c.a),
+              seq_len(v.seq_lens[c.sid]), coff(v.chrom_off[c.sid]),
+              key((int64_t)c.p * v.nU + v.univ_of_seq[c.sid]), ext(v.ext) {}
+
+        __device__ __forceinline__ void operator()(int left, int right) {
+            int64_t es = left + 1 - base - ext;
+            int64_t ee = right - base + ext;
+            es = es > 0 ? es : 0;
+            ee = ee < seq_len ? ee : seq_len;
+            out.key[o] = key;
+            out.s[o] = es + coff;
+            out.e[o] = ee + coff;
+            ++o;
+        }
+    };
+};
 
 static VwParams vw_params(
         const void* mega, int64_t n_mega, const void* codes, int64_t n_codes,
@@ -464,10 +521,8 @@ static VwParams vw_params(
         int L, int K, int k_seed, int lcf, int seed_req, int fast_ok,
         int ext, int64_t nU) {
     VwParams v;
-    v.mega = (const uint8_t*)mega;
-    v.n_mega = n_mega;
-    v.codes = (const uint8_t*)codes;
-    v.n_codes = n_codes;
+    v.src = VwSrc{(const uint8_t*)mega, n_mega, (const uint8_t*)codes,
+                  n_codes, L};
     v.lens = (const int64_t*)lens;
     v.pc = (const int64_t*)pc;
     v.ac = (const int64_t*)ac;
@@ -478,7 +533,6 @@ static VwParams vw_params(
     v.chrom_off = (const int64_t*)chrom_off;
     v.univ_of_seq = (const int64_t*)univ_of_seq;
     v.n_seqs = (int)n_seqs;
-    v.L = L;
     v.K = K;
     v.k_seed = k_seed;
     v.lcf = lcf;
@@ -503,161 +557,93 @@ static VwParams vw_params(
 
 // counts: int64[n]; masks: uint32[words * n], words = (L + 46) / 32.
 extern "C" int ct_vw_mask(VW_ARGS, void* counts, void* masks, void* stream) {
-    if (K < 0 || K > CT_KMAX) return (int)cudaErrorInvalidValue;
-    if (n > 0)
-        vw_run(VW_PARAMS, nullptr, (uint32_t*)masks, (int64_t*)counts,
-               nullptr, nullptr, nullptr, ct_stream(stream));
-    return (int)cudaGetLastError();
+    return vw_run(VW_PARAMS, nullptr, (uint32_t*)masks, (int64_t*)counts,
+                  VwParams::Out{}, stream);
 }
 
 // off_incl: the inclusive sums of ct_vw_mask's counts; key, s, e: int64
 // of its total.
 extern "C" int ct_vw_emit(VW_ARGS, const void* off_incl, const void* masks,
                           void* key, void* s, void* e, void* stream) {
-    if (K < 0 || K > CT_KMAX) return (int)cudaErrorInvalidValue;
-    if (n > 0)
-        vw_run(VW_PARAMS, (const int64_t*)off_incl, (uint32_t*)masks,
-               nullptr, (int64_t*)key, (int64_t*)s, (int64_t*)e,
-               ct_stream(stream));
-    return (int)cudaGetLastError();
+    return vw_run(VW_PARAMS, (const int64_t*)off_incl, (uint32_t*)masks,
+                  nullptr, VwParams::Out{(int64_t*)key, (int64_t*)s,
+                                         (int64_t*)e}, stream);
 }
 
 // ----------------------------------------------------------------------
 // K6 verify_spans
 // ----------------------------------------------------------------------
 
-// K6's walk: one thread a candidate, byte by byte, a ring of the last K+2
-// mismatch positions indexed % (K+2).  Its successor is the K3 core above
-// (VwMask, VwWindows); moving K6 onto it is an item of its own.
-struct Span {
-    int64_t key, start, end;
-};
-
-// The qualifying windows of one candidate: probe row prb against the
-// corpus at alignment a (seq = mega + a) over the band [i_lo, i_hi),
-// for a sequence of length n_seq and a cover threshold thres > 0.
-// Calls emit(start, end) in corpus coordinates for every window, in
-// order, and returns how many there were.
-template <typename Emit>
-__device__ int64_t enumerate_windows(const uint8_t* seq, const uint8_t* prb,
-                                     int64_t a, int i_lo, int i_hi,
-                                     int64_t thres, int64_t n_seq, int L,
-                                     int K, int k_seed, int seed_req,
-                                     int fast_ok, Emit emit) {
-    const bool is_fast =
-        fast_ok && (n_seq >= L || (K == 0 && n_seq >= k_seed));
-    if (is_fast) {
-        int nm = 0;
-        for (int j = i_lo; j < i_hi; ++j) {
-            uint8_t c = seq[j];
-            nm += !(c == prb[j] && c > 0);
-        }
-        int64_t need = thres - K > k_seed ? thres - K : k_seed;
-        if ((int64_t)(i_hi - i_lo - nm) >= need) {
-            emit(a + i_lo, a + i_hi);
-            return 1;
-        }
-        return 0;
-    }
-
-    const int R = K + 2;
-    int ring[CT_KMAX + 2];
-    int64_t n_out = 0;
-    int idx = 0;                          // index of the newest P entry
-    ring[0] = i_lo - 1;
-    // Window t = idx - K - 1 closes when P[idx] arrives.
-    auto close = [&]() {
-        int t = idx - K - 1;
-        if (t < 0) return;
-        int left = ring[t % R];
-        int right = ring[idx % R];
-        if (right - left - 1 < thres) return;
-        int seedmax = -1;
-        for (int u = t; u < idx; ++u) {
-            int run = ring[(u + 1) % R] - ring[u % R] - 1;
-            seedmax = run > seedmax ? run : seedmax;
-        }
-        if (seedmax < seed_req) return;
-        emit(left + 1 + a, right + a);
-        ++n_out;
-    };
-    for (int j = i_lo; j < i_hi; ++j) {
-        uint8_t c = seq[j];
-        if (!(c == prb[j] && c > 0)) {
-            ++idx;
-            ring[idx % R] = j;
-            close();
-        }
-    }
-    // P[nm+1 ..] = i_hi closes windows up to t = nm.
-    for (int x = 0; x <= K; ++x) {
-        ++idx;
-        ring[idx % R] = i_hi;
-        close();
-    }
-    return n_out;
-}
-
-
-struct SpanParams {
-    const uint8_t* mega;      // corpus codes, 0 = PAD
-    const uint8_t* codes;     // probe codes [P, L]
-    const int64_t* pg;        // candidate probe ids [n]
-    const int64_t* start;     // clipped span start, corpus coordinates
-    const int64_t* poff0;     // offset of start into the probe
-    const int64_t* ov;        // overlap length
-    const int64_t* thres;     // cover length threshold
-    const int64_t* n_seq;     // length of the candidate's sequence
+// K6's job: a candidate is its six fields.  Its alignment a = start -
+// poff0 is 64-bit (the span scan's corpus reaches 2^34 positions); its
+// band [poff0, poff0 + ov) is clamped to the probe row [0, L), which
+// changes nothing for the span scan's candidates (keep_candidates gives
+// 0 <= poff0 and poff0 + ov <= the probe's length) and keeps any other
+// input's loads inside the row.  Its spans are [a + left + 1, a + right)
+// in corpus coordinates.
+struct VsParams {
+    VwSrc src;
+    const int64_t *pg, *start, *poff0, *ov, *thres, *n_seq;
     int64_t n;
-    int L, K, k_seed, seed_req, fast_ok;
+    int K, k_seed, seed_req, fast_ok;
+
+    struct Fields {
+        int64_t p, start, poff0, ov, thres, n_seq;
+    };
+    struct Out {
+        int64_t *p, *s, *e;
+    };
+
+    __device__ __forceinline__ Fields fields(int64_t i) const {
+        return Fields{pg[i], start[i], poff0[i], ov[i], thres[i], n_seq[i]};
+    }
+
+    // Fills c; false when the threshold is <= 0 (no span).
+    __device__ __forceinline__ bool candidate(const Fields& f,
+                                              Cand& c) const {
+        const int64_t L = src.L;
+        const int64_t i_lo = f.poff0 < 0 ? 0 : f.poff0 < L ? f.poff0 : L;
+        int64_t i_hi = f.poff0 + f.ov;
+        i_hi = i_hi < i_lo ? i_lo : i_hi < L ? i_hi : L;
+        c.p = (int)f.p;
+        c.sid = 0;
+        c.a = f.start - f.poff0;
+        c.i_lo = (int)i_lo;
+        c.i_hi = (int)i_hi;
+        // a window holds at most L positions, so any threshold above
+        // L + K (the fast path's need, thres - K, above L) is as good
+        const int64_t t_max = L + CT_KMAX + 1;
+        c.thres = (int)(f.thres < t_max ? f.thres : t_max);
+        c.fast = fast_ok && (f.n_seq >= L || (K == 0 && f.n_seq >= k_seed));
+        return f.thres > 0;
+    }
+
+    struct Emit {
+        const Out out;
+        int64_t o, a, p;
+
+        __device__ Emit(const VsParams&, const Cand& c, const Out& out_,
+                        int64_t o_)
+            : out(out_), o(o_), a(c.a), p(c.p) {}
+
+        __device__ __forceinline__ void operator()(int left, int right) {
+            out.p[o] = p;
+            out.s[o] = a + left + 1;
+            out.e[o] = a + right;
+            ++o;
+        }
+    };
 };
 
-template <typename Emit>
-__device__ int64_t span_candidate(const SpanParams& v, int64_t i,
-                                  Emit emit) {
-    const int64_t thres = v.thres[i];
-    if (thres <= 0) return 0;
-    const int64_t p = v.pg[i];
-    const int i_lo = (int)v.poff0[i];
-    const int64_t a = v.start[i] - i_lo;
-    return enumerate_windows(
-        v.mega + a, v.codes + p * (int64_t)v.L, a, i_lo,
-        i_lo + (int)v.ov[i], thres, v.n_seq[i], v.L, v.K, v.k_seed,
-        v.seed_req, v.fast_ok,
-        [&](int64_t sp_s, int64_t sp_e) { emit(Span{p, sp_s, sp_e}); });
-}
-
-__global__ void verify_spans_count_kernel(SpanParams v,
-                                          int64_t* __restrict__ counts) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= v.n) return;
-    counts[i] = span_candidate(v, i, [](const Span&) {});
-}
-
-__global__ void verify_spans_emit_kernel(SpanParams v,
-                                         const int64_t* __restrict__ off_incl,
-                                         int64_t* __restrict__ p,
-                                         int64_t* __restrict__ s,
-                                         int64_t* __restrict__ e) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= v.n) return;
-    int64_t o = i ? off_incl[i - 1] : 0;
-    span_candidate(v, i, [&](const Span& sp) {
-        p[o] = sp.key;
-        s[o] = sp.start;
-        e[o] = sp.end;
-        ++o;
-    });
-}
-
-static SpanParams make_span_params(
-        const void* mega, const void* codes, const void* pg,
-        const void* start, const void* poff0, const void* ov,
-        const void* thres, const void* n_seq, int64_t n, int L, int K,
-        int k_seed, int seed_req, int fast_ok) {
-    SpanParams v;
-    v.mega = (const uint8_t*)mega;
-    v.codes = (const uint8_t*)codes;
+static VsParams vs_params(const void* mega, int64_t n_mega,
+                          const void* codes, int64_t n_codes, int L,
+                          const void* pg, const void* start,
+                          const void* poff0, const void* ov,
+                          const void* thres, const void* n_seq, int64_t n,
+                          int K, int k_seed, int seed_req, int fast_ok) {
+    VsParams v;
+    v.src = VwSrc{(const uint8_t*)mega, n_mega, (const uint8_t*)codes,
+                  n_codes, L};
     v.pg = (const int64_t*)pg;
     v.start = (const int64_t*)start;
     v.poff0 = (const int64_t*)poff0;
@@ -665,7 +651,6 @@ static SpanParams make_span_params(
     v.thres = (const int64_t*)thres;
     v.n_seq = (const int64_t*)n_seq;
     v.n = n;
-    v.L = L;
     v.K = K;
     v.k_seed = k_seed;
     v.seed_req = seed_req;
@@ -673,37 +658,26 @@ static SpanParams make_span_params(
     return v;
 }
 
-extern "C" int ct_verify_spans_count(
-        const void* mega, const void* codes, const void* pg,
-        const void* start, const void* poff0, const void* ov,
-        const void* thres, const void* n_seq, int64_t n, int L, int K,
-        int k_seed, int seed_req, int fast_ok, void* counts, void* stream) {
-    if (K < 0 || K > CT_KMAX) return (int)cudaErrorInvalidValue;
-    if (n > 0) {
-        SpanParams v = make_span_params(mega, codes, pg, start, poff0, ov,
-                                        thres, n_seq, n, L, K, k_seed,
-                                        seed_req, fast_ok);
-        verify_spans_count_kernel<<<ct_blocks(n, 128), 128, 0,
-                                    ct_stream(stream)>>>(v, (int64_t*)counts);
-    }
-    return (int)cudaGetLastError();
+#define VS_ARGS                                                              \
+    const void *mega, int64_t n_mega, const void *codes, int64_t n_codes,    \
+        int L, const void *pg, const void *start, const void *poff0,         \
+        const void *ov, const void *thres, const void *n_seq, int64_t n,     \
+        int K, int k_seed, int seed_req, int fast_ok
+#define VS_PARAMS                                                            \
+    vs_params(mega, n_mega, codes, n_codes, L, pg, start, poff0, ov, thres,  \
+              n_seq, n, K, k_seed, seed_req, fast_ok)
+
+// counts: int64[n]; masks: uint32[words * n], words = (L + 46) / 32.
+extern "C" int ct_vs_mask(VS_ARGS, void* counts, void* masks, void* stream) {
+    return vw_run(VS_PARAMS, nullptr, (uint32_t*)masks, (int64_t*)counts,
+                  VsParams::Out{}, stream);
 }
 
-extern "C" int ct_verify_spans_emit(
-        const void* mega, const void* codes, const void* pg,
-        const void* start, const void* poff0, const void* ov,
-        const void* thres, const void* n_seq, int64_t n, int L, int K,
-        int k_seed, int seed_req, int fast_ok, const void* off_incl,
-        void* p, void* s, void* e, void* stream) {
-    if (K < 0 || K > CT_KMAX) return (int)cudaErrorInvalidValue;
-    if (n > 0) {
-        SpanParams v = make_span_params(mega, codes, pg, start, poff0, ov,
-                                        thres, n_seq, n, L, K, k_seed,
-                                        seed_req, fast_ok);
-        verify_spans_emit_kernel<<<ct_blocks(n, 128), 128, 0,
-                                   ct_stream(stream)>>>(
-            v, (const int64_t*)off_incl, (int64_t*)p, (int64_t*)s,
-            (int64_t*)e);
-    }
-    return (int)cudaGetLastError();
+// off_incl: the inclusive sums of ct_vs_mask's counts; p, s, e: int64
+// of its total.
+extern "C" int ct_vs_emit(VS_ARGS, const void* off_incl, const void* masks,
+                          void* p, void* s, void* e, void* stream) {
+    return vw_run(VS_PARAMS, (const int64_t*)off_incl, (uint32_t*)masks,
+                  nullptr, VsParams::Out{(int64_t*)p, (int64_t*)s,
+                                         (int64_t*)e}, stream);
 }

@@ -27,8 +27,12 @@ Phases (any failure exits non-zero and prints no result line):
      must equal tests/data/golden/torch_ebola175_m2.fasta byte for byte,
      and the six design kernels must have launched;
   6. the two span-scan kernels, expand_join and verify_spans, against
-     their twins on the inputs the first batch (75 Mbp, both strands) of
-     phase 8's avoid scan gives them: exactly equal; CUDA-event medians;
+     their twins on the inputs of their three callers (span_shapes): the
+     first batch (75 Mbp, both strands) of phase 8's avoid scan, phase
+     9's analysis (w = 1) and one adapter vote of phase 24 (i) (the
+     first ebola175 genome against torch_ebola175_m2.fasta's probes):
+     exactly equal; CUDA-event medians, min and max (the avoid batch's
+     in the JSON line);
   7. the identify and avoid goldens through catch_tpu_torch.cli.design
      on cuda (ref_identify_m0.fasta, ref_avoid_m0.fasta);
   8. the avoid scan at real size (bench.py's avoid configuration): the
@@ -37,10 +41,13 @@ Phases (any failure exits non-zero and prints no result line):
      under SetCoverFilter(mismatches=2, lcf_thres=60,
      cover_extension=50), counting launches; the ranks must equal
      tests/data/golden/avoid100m_ranks.tsv; the buckets each tier of
-     segmented_merge took in each of its calls;
+     segmented_merge took in each of its calls; the span kernels' calls,
+     launches, summed CUDA-event ms and smallest, median and largest
+     shapes (span_totals);
   9. catch_tpu_torch.cli.analyze_probe_coverage on ebola175 with the
      probes of torch_ebola175_m2.fasta (-m 2 -l 60 -e 50) on cuda,
-     counting launches; both TSVs must equal their goldens;
+     counting launches; both TSVs must equal their goldens; the span
+     kernels' totals as in phase 8;
  10. design_large through catch_tpu_torch.cli.design_large on cuda, with
      its defaults, on the 2,000-genome influenza-like corpus
      (influenza_like_segments(n_genomes=2000, seed=0), 8 segment FASTAs,
@@ -153,8 +160,9 @@ Phases (any failure exits non-zero and prints no result line):
      counts set to 0 just before: the FASTA must equal
      ebola175_m2_adapters_rc.fasta byte for byte, the adapter votes
      must have launched expand_join and verify_spans (the design has no
-     other span scan), and the forward probes without their adapters
-     must be torch_ebola175_m2.fasta's; (ii) the same flags with
+     other span scan; their totals as in phase 8), and the forward
+     probes without their adapters must be torch_ebola175_m2.fasta's;
+     (ii) the same flags with
      --filter-from-fasta on (i)'s forward probes without adapters and
      --skip-set-cover: the same records as (i), and no design-scan
      kernel launched; (iii) ebola5 -pl 100 with --custom-hybridization-fn
@@ -777,14 +785,15 @@ def compare(torch, cases, twin_reps=None):
     return rows
 
 
-def check_span_kernels(torch, device, scf, cands, bg):
-    """Phase 6: expand_join and verify_spans against their twins on the
-    inputs of the avoid scan's first batch; returns the JSON rows."""
-    import numpy as np
-
+def span_shapes(device, scf, cands, bg):
+    """(name, searcher, strands) of the span scan's three callers: the
+    avoid scan's first batch, the ebola175 analysis (kmer_probe_map_k
+    10: w = 1; every genome, both strands) and one adapter vote (the
+    first ebola175 genome, one strand); the last two against
+    torch_ebola175_m2.fasta's probes (-m 2 -l 60)."""
     from catch_tpu_torch.filters.set_cover_filter import _reverse_complement
-    from catch_tpu_torch.ops import scan_sparse as ss
-    from catch_tpu_torch.ops.cover import ProbeSearcher
+    from catch_tpu_torch.ops.cover import CoverModel, ProbeSearcher
+    from catch_tpu_torch.probe import Probe
     from catch_tpu_torch.utils import seq_io
 
     batch, batch_bp = [], 0
@@ -793,56 +802,188 @@ def check_span_kernels(torch, device, scf, cands, bg):
         batch_bp += len(seq)
         if batch_bp >= scf._AVOID_BATCH_BP:
             break
-    strands = batch + [_reverse_complement(x) for x in batch]
-    searcher = ProbeSearcher(cands, scf.tolerant_model,
-                             kmer_probe_map_k=scf.kmer_probe_map_k,
-                             device=device)
-    t0 = time.time()
-    mega, starts, ends, total = ss.corpus_codes(searcher, strands)
-    lo, cnt, pos = ss.join_runs(searcher, mega[:total])
-    host_s = time.time() - t0
-    if int(cnt.sum()) > ss._EXPAND_SLAB:
-        fail("the first avoid batch needs more than one expansion slab")
+    yield "avoid batch 1", ProbeSearcher(
+        cands, scf.tolerant_model, kmer_probe_map_k=scf.kmer_probe_map_k,
+        device=device), batch + [_reverse_complement(x) for x in batch]
+    del batch
+    probes = [Probe.from_str(x) for x in seq_io.read_fasta(os.path.join(
+        GOLDEN, "torch_ebola175_m2.fasta")).values()]
+    genomes = seq_io.read_genomes_from_fasta(write_subset(175))
+    strands = []
+    for g in genomes:
+        strands += list(g.seqs) + [_reverse_complement(x) for x in g.seqs]
+    yield "analysis", ProbeSearcher(probes, CoverModel(2, 60),
+                                    kmer_probe_map_k=10,
+                                    device=device), strands
+    yield "adapter vote", ProbeSearcher(probes, CoverModel(2, 60),
+                                        kmer_probe_map_k=20,
+                                        device=device), [genomes[0].seqs[0]]
+
+
+def spans_work(n_mega, n_codes, L, cand, n_spans):
+    """(bytes, operations) that verify_spans needs on these candidates:
+    the corpus bytes under their bands (each band read once, at most the
+    whole corpus), the probe rows, 48 bytes a candidate in and 24 a span
+    out; a compare a band position.  A candidate's band is [poff0, poff0
+    + ov) clamped to the probe row, as csrc/verify_windows.cu's VsParams
+    takes it."""
+    lo = cand[2].clamp(0, L)
+    band = int(((cand[2] + cand[3]).clamp(max=L) - lo).clamp(min=0).sum())
+    return (min(n_mega, band) + n_codes + 48 * cand[0].numel()
+            + 24 * n_spans, band)
+
+
+def check_span_kernels(torch, device, scf, cands, bg):
+    """Phase 6: expand_join and verify_spans against their twins on the
+    inputs of each of span_shapes; returns the JSON rows (the avoid
+    batch's) and phase 20's inputs (the avoid batch's candidates)."""
+    import numpy as np
+
+    from catch_tpu_torch.ops import scan_sparse as ss
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-    lo_t, cnt_t, pos_t = put(lo), put(cnt), put(pos)
-    join_p, join_pos = ss.join_table(searcher, device)
-    lmax = int(searcher.Lmax)
+    rows, kept = None, None
+    for what, searcher, strands in span_shapes(device, scf, cands, bg):
+        t0 = time.time()
+        mega, starts, ends, total = ss.corpus_codes(searcher, strands)
+        lo, cnt, pos = ss.join_runs(searcher, mega[:total])
+        host_s = time.time() - t0
+        if int(cnt.sum()) > ss._EXPAND_SLAB:
+            fail(f"{what}: the span scan needs more than one expansion slab")
+        lo_t, cnt_t, pos_t = put(lo), put(cnt), put(pos)
+        tb = ss.device_tables(searcher, device)
+        lmax = int(searcher.Lmax)
+        keep = ss.keep_args(searcher, put(starts), put(ends))
 
-    def k5(fn):
-        return fn(lo_t, cnt_t, pos_t, join_p, join_pos, lmax)
+        # the scan's call: the keep predicate folded into K5
+        def k5(fn, lo_t=lo_t, cnt_t=cnt_t, pos_t=pos_t, tb=tb, lmax=lmax,
+               keep=keep):
+            return fn(lo_t, cnt_t, pos_t, tb["join_p"], tb["join_pos"], lmax,
+                      keep)
 
-    p, a = k5(ss.expand_join)
-    cand = ss.keep_candidates(searcher, p, a, put(starts), put(ends))
-    mega_t, codes_t = put(mega), put(searcher.probe_codes)
-    vargs = ss.verify_args(searcher)
+        def kernel5(*args, tb=tb):
+            return ss.expand_join(*args[:6], tb["index"], args[6])
 
-    def k6(fn):
-        return fn(mega_t, codes_t, *cand, **vargs)
+        def twin5(*args):
+            return ss._keep_plain(*ss._expand_join_plain(*args[:6]),
+                                  **args[6])
 
-    print(f"avoid batch 1 shapes: {len(batch)} chromosomes, {batch_bp} bp, "
-          f"{len(strands)} strands, {len(cands)} candidate probes, "
-          f"{searcher.probe_codes.shape[0]} unique, join (kj, w) = "
-          f"{searcher._join_kw}, {len(searcher._join_h)} table rows; "
-          f"{len(lo)} runs, {int(cnt.sum())} hits, {int(p.numel())} pairs, "
-          f"{int(cand[0].numel())} kept, {int(k6(ss.verify_spans)[0].numel())}"
-          f" spans; host join {host_s:.2f} s", flush=True)
-    # K5: a store per hit; K6: a compare per aligned probe position.
-    n_cand, n_spans = cand[0].numel(), k6(ss.verify_spans)[0].numel()
-    # phase 20 verifies the same candidates over four places; they wait on
-    # the host meanwhile
-    keep = dict(mega=mega, codes=searcher.probe_codes,
-                cand=[x.cpu() for x in cand], vargs=vargs, n_spans=n_spans)
-    return keep, compare(torch, [
-        ("expand_join", k5, ss._expand_join_plain, ss.expand_join, 10,
-         (24 * len(lo) + 16 * join_p.numel() + 16 * p.numel(),
-          int(cnt.sum()))),
-        ("verify_spans", k6, ss._verify_spans_plain, ss.verify_spans, 10,
-         (mega_t.numel() + codes_t.numel() + 48 * n_cand + 24 * n_spans,
-          n_cand * codes_t.shape[1])),
-    ])
+        n_pairs = ss.expand_join(lo_t, cnt_t, pos_t, tb["join_p"],
+                                 tb["join_pos"], lmax, tb["index"])[0].numel()
+        cand = k5(kernel5)
+        mega_t, codes_t = put(mega), tb["codes"]
+        vargs = ss.verify_args(searcher)
+
+        def k6(fn, mega_t=mega_t, codes_t=codes_t, cand=cand, vargs=vargs):
+            return fn(mega_t, codes_t, *cand, **vargs)
+
+        n_cand, n_spans = cand[0].numel(), k6(ss.verify_spans)[0].numel()
+        print(f"{what} shapes: {len(strands)} strands, {total} corpus "
+              f"positions, {searcher.probe_codes.shape[0]} unique probes, "
+              f"join (kj, w) = {searcher._join_kw}, "
+              f"{len(searcher._join_h)} table rows; {len(lo)} runs, "
+              f"{int(cnt.sum())} hits, {n_pairs} pairs, {n_cand} "
+              f"kept, {n_spans} spans; host join {host_s:.2f} s",
+              flush=True)
+        # K5 reads the runs, the table and the sequence bounds and writes
+        # 48 bytes a kept candidate, with an operation a raw hit; K6 as
+        # spans_work counts.
+        out = compare(torch, [
+            ("expand_join", k5, twin5, kernel5, 10,
+             (24 * len(lo) + 16 * tb["join_p"].numel() + 16 * len(starts)
+              + 48 * n_cand, int(cnt.sum()))),
+            ("verify_spans", k6, ss._verify_spans_plain, ss.verify_spans,
+             10, spans_work(mega_t.numel(), codes_t.numel(),
+                            codes_t.shape[1], cand, n_spans)),
+        ])
+        if rows is None:
+            rows = out
+            # phase 20 verifies the same candidates over four places; they
+            # wait on the host meanwhile
+            kept = dict(mega=mega, codes=searcher.probe_codes,
+                        cand=[x.cpu() for x in cand], vargs=vargs,
+                        n_spans=n_spans)
+        del lo_t, cnt_t, pos_t, mega_t, cand
+    return kept, rows
+
+
+# The span kernels' entry points, whose real totals phases 8, 9 and 24
+# (i) print.
+SPAN_ENTRIES = ("expand_join", "verify_spans")
+
+
+@contextlib.contextmanager
+def span_calls(torch, log):
+    """scan_sparse's span kernel wrappers wrapped so that each call
+    appends (name, its input size, its output size, events) to log:
+    expand_join's cnt (a tensor, read afterwards) and its pairs (or kept
+    candidates, where the keep predicate is folded in), verify_spans'
+    candidates and spans; two CUDA events on the current stream bracket
+    the call.  A wrapper counts its launches on the name it has in the
+    module, which is the wrapped function for a while: each call hands
+    them on to the wrapper itself."""
+    from catch_tpu_torch.ops import scan_sparse as ss
+    saved = {n: getattr(ss, n) for n in SPAN_ENTRIES}
+
+    def wrap(name, fn):
+        def wrapped(*args, **kwargs):
+            ev = tuple(torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+            ev[0].record()
+            out = fn(*args, **kwargs)
+            ev[1].record()
+            fn.launches += wrapped.launches
+            wrapped.launches = 0
+            size = out[0].numel()
+            if name == "expand_join":
+                size = (size, "kept" if len(out) == 6 else "pairs")
+            log.append((name, args[1] if name == "expand_join" else
+                        args[2].numel(), size, ev))
+            return out
+        wrapped.launches = 0
+        return wrapped
+
+    for n, fn in saved.items():
+        setattr(ss, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ss, n, fn)
+
+
+def span_totals(what, log, launches):
+    """Print, for each span kernel called in `log` (span_calls), its
+    calls, its launches, the calls' summed CUDA-event ms and its
+    smallest, median and largest call: (runs, raw hits, its output and
+    whether those are pairs or kept candidates) of expand_join by hits,
+    (candidates, spans) of verify_spans by candidates.  Returns {entry
+    point: (calls, launches, summed ms)}."""
+    out = {}
+    for name in SPAN_ENTRIES:
+        calls = []
+        for n, x, y, (a, b) in log:
+            if n != name:
+                continue
+            shape = ((x.numel(), int(x.sum())) + y if name == "expand_join"
+                     else (x, y))
+            calls.append((shape, a.elapsed_time(b)))
+        if not calls:
+            continue
+        calls.sort(key=lambda c: c[0][1] if name == "expand_join"
+                   else c[0][0])
+        ms = sum(t for _, t in calls)
+        labels = ("runs, raw hits, out" if name == "expand_join"
+                  else "candidates, spans")
+        print(f"{what}: {name}: {len(calls)} calls, {launches[name]} "
+              f"launches, {ms:.4f} ms summed over the calls' CUDA events; "
+              f"shapes ({labels}) smallest {calls[0][0]}, median "
+              f"{calls[len(calls) // 2][0]}, largest {calls[-1][0]}",
+              flush=True)
+        out[name] = (len(calls), launches[name], ms)
+    return out
 
 
 def avoid_setup(device):
@@ -1827,14 +1968,13 @@ def check_mesh_kernels(torch, device, instances, span_inputs):
     def twin(reps, *cand, **kw):
         return ss._verify_spans_plain(*reps[0], *cand, **kw)
 
-    # The function reads the corpus and the probe rows once, as
-    # verify_spans does: the places hold replicas, but each candidate is
-    # verified by one place only.
+    # The function does verify_spans' work (spans_work): the places hold
+    # replicas, but each candidate is verified by one place only.
     rows += compare(torch, [
         ("verify_spans_sharded", lambda f: f(replicas, *cand, **x["vargs"]),
          twin, ss.verify_spans_sharded, 10,
-         (len(x["mega"]) + x["codes"].size + 48 * n_cand
-          + 24 * x["n_spans"], n_cand * L))])
+         spans_work(len(x["mega"]), x["codes"].size, L, cand,
+                    x["n_spans"]))])
     del replicas, cand
     return rows + compare(torch, [dedup_case(torch, device, n)])
 
@@ -2161,17 +2301,24 @@ def fasta_in_order(path):
     return [tuple(r) for r in recs]
 
 
+# Phase 24 (i)'s design flags beside its input and output.
+ADAPTER_FLAGS = ["-pl", "100", "-m", "2", "-l", "60", "-e", "50", "--device",
+                 "cuda", "--add-adapters", "--add-reverse-complements"]
+
+
 def host_modules(torch, si, profiling, in175):
     """Phase 24: the host filters, custom functions and design_naively
     against catch_tpu's goldens (module docstring)."""
-    flags = ["-pl", "100", "-m", "2", "-l", "60", "-e", "50", "--device",
-             "cuda", "--add-adapters", "--add-reverse-complements"]
+    flags = ADAPTER_FLAGS
     span_kernels = ["expand_join", "verify_spans"]
 
     # (i) adapters and reverse complements.
     out1 = os.path.join(WORK, "ebola175_m2_adapters_rc.fasta")
-    _, wall, launches, peak = counted(torch, si, profiling, lambda: design(
-        [in175, "-o", out1] + flags))
+    span_log = []
+    with span_calls(torch, span_log):
+        _, wall, launches, peak = counted(torch, si, profiling,
+                                          lambda: design([in175, "-o", out1]
+                                                         + flags))
     if not same_bytes(out1, os.path.join(GOLDEN,
                                          "ebola175_m2_adapters_rc.fasta")):
         fail("phase 24 (i): the adapter and rc design differs from "
@@ -2196,6 +2343,7 @@ def host_modules(torch, si, profiling, in175):
     print(f"launches in the adapter design: {launches}", flush=True)
     require_launched(launches, span_kernels, "the adapter votes")
     require_launched(launches, DESIGN_KERNELS, "the adapter design")
+    span_totals("phase 24 (i) adapter-vote span totals", span_log, launches)
 
     # (ii) the same design re-processed without its set cover.
     keep = os.path.join(WORK, "ebola175_m2_forward.fasta")
@@ -2262,23 +2410,23 @@ def host_modules(torch, si, profiling, in175):
 
 # Phase 25 (i): the trace regions (catch_tpu_torch/utils/profiling.py
 # maybe_trace), and for each the kernels its trace must hold: wrapper ->
-# the __global__ names of its kernels in catch_tpu_torch/csrc/, one of
-# which must appear.
+# strings of the __global__ names of its kernels in catch_tpu_torch/csrc/
+# (K3 and K6 share csrc/verify_windows.cu's kernels: their job types
+# tell them apart), one of which must appear.
 TRACE_REGIONS = ("scan_instance", "set_cover_solve", "cover_scan_join",
                  "cover_scan_verify")
 TRACE_KERNELS = {
     "scan_instance": {
         "rolling_hash": ("rolling_hash_kernel",),
         "lookup_expand": ("le_merge_kernel",),
-        "verify_windows": ("vw_mask_kernel", "vw_emit_kernel"),
+        "verify_windows": ("VwParams",),
         "segmented_merge": ("sm_bounds_kernel", "sm_hist_kernel",
                             "sm_warp_kernel", "sm_block_kernel",
                             "sm_device_kernel", "sm_emit_kernel")},
     "set_cover_solve": {"greedy_v2": ("k12_pair_new_kernel",
                                       "k12_score_kernel",
                                       "k12_update_kernel")},
-    "cover_scan_verify": {"verify_spans": ("verify_spans_count_kernel",
-                                           "verify_spans_emit_kernel")},
+    "cover_scan_verify": {"verify_spans": ("VsParams",)},
 }
 
 
@@ -2506,9 +2654,11 @@ def main():
     # Phase 8: the avoid scan at real size, counting launches.
     want, n_flagged = expected_ranks(len(cands))
     tiers = []   # a few ms of the wall: the inputs are not kept
+    span_log = []
     with recording(si, "_segmented_merge_cuda", lambda args, kwargs, res:
                    tiers.append((int(args[0].numel()),
-                                 si.merge_tiers(*args[:3])))):
+                                 si.merge_tiers(*args[:3])))), \
+            span_calls(torch, span_log):
         ranks, wall, launches, peak = counted(
             torch, si, profiling, lambda: scf._make_ranks(cands, [genomes8]))
     if not (ranks == want).all():
@@ -2524,14 +2674,17 @@ def main():
     print(f"launches in the avoid scan: {launches}", flush=True)
     require_launched(launches, ["expand_join", "verify_spans",
                                 "segmented_merge"], "the avoid scan")
+    span_totals("avoid 100 Mbp span totals", span_log, launches)
     for r in span_rows:
         r["launches"] = launches[r["name"]]
     avoid_ref = (wall, peak)
     clock.done(8)
 
     # Phase 9: coverage analysis of ebola175 through the CLI.
-    _, wall, launches, peak = counted(torch, si, profiling,
-                                      lambda: ebola175_analysis(in175))
+    span_log = []
+    with span_calls(torch, span_log):
+        _, wall, launches, peak = counted(torch, si, profiling,
+                                          lambda: ebola175_analysis(in175))
     print(f"ebola175 analysis: both TSVs equal to goldens; wall {wall:.3f} s;"
           f" peak allocated device memory {peak / 2**20:.1f} MiB",
           flush=True)
@@ -2539,6 +2692,7 @@ def main():
     print(f"launches in the analysis: {launches}", flush=True)
     require_launched(launches, ["expand_join", "verify_spans"],
                      "the analysis")
+    span_totals("ebola175 analysis span totals", span_log, launches)
     clock.done(9)
     rows += span_rows
 

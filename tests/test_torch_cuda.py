@@ -670,6 +670,179 @@ def test_span_kernels_empty_inputs(cuda):
                         seed_req=4, fast_ok=False)
 
 
+def _verify_inputs(seed, L, lcf, k_seed, n_probes=10, n_cand=500):
+    """Probe rows of lengths L - 9 to L, a corpus of their mutated copies
+    laid out as scan_sparse.corpus_codes lays it out (the first sequence
+    behind mega's leading pad, the last before its tail), and candidates
+    at and near the copies, at random and at both ends of the corpus,
+    with the keep predicate's fields: (mega, codes, the six candidate
+    arrays) as numpy."""
+    rng = np.random.default_rng(seed)
+    plens = rng.integers(max(1, L - 9), L + 1, size=n_probes)
+    plens[0] = plens[-1] = L
+    codes = np.zeros((n_probes, L), dtype=np.uint8)
+    for i, n in enumerate(plens):
+        codes[i, :n] = rng.integers(1, 5, size=n)
+    seqs, planted = [], []
+    for s in range(8):
+        parts, at = [], 0
+        for _ in range(6):
+            p = int(rng.integers(n_probes))
+            q = codes[p, :plens[p]].copy()
+            m = rng.random(len(q)) < rng.choice([0.0, 0.01, 0.03, 0.1, 0.3])
+            q[m] = rng.integers(1, 5, size=int(m.sum()))
+            gap = rng.integers(1, 5, size=int(rng.integers(0, 25)))
+            planted.append((s, p, at + len(gap)))
+            parts += [gap, q]
+            at += len(gap) + len(q)
+        seqs.append(np.concatenate(parts))
+    seqs.append(codes[1, :max(1, L // 2)].copy())     # shorter than L
+    starts, pos = [], L
+    for x in seqs:
+        starts.append(pos)
+        pos += len(x) + L
+    mega = np.zeros(pos + L, dtype=np.uint8)
+    for st, x in zip(starts, seqs):
+        mega[st:st + len(x)] = x
+    ends = [st + len(x) for st, x in zip(starts, seqs)]
+    pairs = [(p, starts[s] + at + int(d)) for s, p, at in planted
+             for d in [0] + rng.integers(-3, 4, size=2).tolist()]
+    pairs += [(int(rng.integers(n_probes)), int(rng.integers(1, pos)))
+              for _ in range(n_cand - len(pairs))]
+    pairs += [(1, starts[-1]), (0, starts[0]), (n_probes - 1, ends[-2] - 1)]
+    fields = []
+    for p, a in pairs:
+        sid = min(int(np.searchsorted(ends, a, side="right")), len(ends) - 1)
+        s_lo, s_hi = starts[sid], ends[sid]
+        st = max(s_lo, a)
+        ov = min(s_hi, a + int(plens[p])) - st
+        n_seq = s_hi - s_lo
+        thres = min(min(int(plens[p]), lcf), n_seq)
+        if ov >= max(thres, k_seed) and thres > 0:
+            fields.append((p, st, st - a, ov, thres, n_seq))
+    return mega, codes, [np.array(x, dtype=np.int64) for x in zip(*fields)]
+
+
+@pytest.mark.parametrize("K,fast_ok,L,lcf,k_seed", [
+    (7, False, 100, 60, 10), (7, True, 100, 60, 10),
+    (8, False, 100, 60, 10), (8, True, 100, 60, 10),
+    (62, False, 61, 40, 6), (3, False, 13, 12, 4)],
+    ids=["K7", "K7-fast", "K8", "K8-fast", "K62-L61", "K3-L13"])
+def test_verify_spans_edge_shapes(cuda, K, fast_ok, L, lcf, k_seed):
+    """verify_spans on the card equals its twin where the window state
+    goes from registers (K = 7) to the ring (K = 8), at K = 62, at an L
+    that is no multiple of 4 or 16, and for each candidate alone."""
+    mega, codes, cand = _verify_inputs(K + L, L, lcf, k_seed)
+    vt = [torch.from_numpy(x).to(cuda) for x in [mega, codes] + cand]
+    kw = dict(K=K, k_seed=k_seed, seed_req=k_seed, fast_ok=fast_ok)
+    want = ss._verify_spans_plain(*vt, **kw)
+    assert want[0].numel() > 10
+    _assert_equal(ss.verify_spans(*vt, **kw), want)
+    for i in (0, len(cand[0]) // 2, len(cand[0]) - 1):
+        one = [x[i:i + 1].contiguous() for x in vt[2:]]
+        _assert_equal(ss.verify_spans(*vt[:2], *one, **kw),
+                      ss._verify_spans_plain(*vt[:2], *one, **kw))
+
+
+@pytest.mark.parametrize("shift", [(1 << 31) + 16, (1 << 31) + 1005])
+def test_verify_spans_past_2_31_bytes(cuda, shift):
+    """On a corpus longer than 2^31 bytes, candidates planted past that
+    offset give the spans of the same candidates on the small corpus,
+    shifted."""
+    mega, codes, cand = _verify_inputs(3, 100, 60, 10)
+    kw = dict(K=2, k_seed=10, seed_req=10, fast_ok=False)
+    small = [torch.from_numpy(x).to(cuda) for x in [mega, codes] + cand]
+    want = ss.verify_spans(*small, **kw)
+    _assert_equal(want, ss._verify_spans_plain(*small, **kw))
+    assert want[0].numel() > 10
+    big = torch.zeros(shift + len(mega), dtype=torch.uint8, device=cuda)
+    big[shift:] = small[0]
+    moved = list(small[2:])
+    moved[1] = moved[1] + shift
+    assert int((moved[1] - moved[2]).min()) >= 1 << 31
+    got = ss.verify_spans(big, small[1], *moved, **kw)
+    _assert_equal(got, (want[0], want[1] + shift, want[2] + shift))
+    del big
+
+
+def _hot_searcher(cuda, case):
+    """A searcher and a corpus with k_seed 10 (w = 1): 'hot', 40 probes
+    sharing a stretch of 20 A and sequences with stretches of hundreds of
+    A; 'wide', probes of 300 bp (291 table rows a probe, more than a
+    warp's register slots)."""
+    rng = np.random.default_rng(7)
+    base = rng.choice(BASES, size=1200)
+    seqs = []
+    for _ in range(6):
+        seq = base[:int(rng.integers(300, 1200))].copy()
+        m = rng.random(len(seq)) < 0.03
+        seq[m] = rng.choice(BASES, size=int(m.sum()))
+        seqs.append("".join(seq))
+    pl, ps = (300, 150) if case == "wide" else (60, 25)
+    if case == "hot":
+        seqs = ["".join(rng.choice(BASES, size=30)) + "A" * 300 + s
+                + "A" * 200 for s in seqs]
+    probes = list(dict.fromkeys(s[i:i + pl] for s in seqs
+                                for i in range(0, len(s) - pl + 1, ps)))
+    if case == "hot":
+        probes += ["".join(rng.choice(BASES, size=20)) + "A" * 20
+                   + "".join(rng.choice(BASES, size=20)) for _ in range(40)]
+    from catch_tpu_torch.probe import Probe
+    searcher = ProbeSearcher([Probe.from_str(x) for x in probes],
+                             CoverModel(2, 40), kmer_probe_map_k=10,
+                             device=cuda)
+    return searcher, seqs
+
+
+@pytest.mark.parametrize("sorts", ["one key", "two stable"])
+@pytest.mark.parametrize("case", ["hot", "wide"])
+def test_expand_join_edge_shapes(cuda, case, sorts, monkeypatch):
+    """expand_join on the card equals its twin with w = 1 and a hot kj-mer
+    (a table run of hundreds of rows, segments of hundreds of positions)
+    and with probes of more rows than a warp's register slots; with and
+    without the kept index and the folded keep predicate, with runs of
+    no hits mixed in, and for one run.  'two stable' orders the runs as
+    a join table of 2^29 rows or more does: two stable sorts and no
+    keys, the gather reading through the order."""
+    if sorts == "two stable":
+        monkeypatch.setattr(ss, "_PACKED_ROWS", 1)
+    searcher, seqs = _hot_searcher(cuda, case)
+    mega, starts, ends, total = ss.corpus_codes(searcher, seqs)
+    lo, cnt, pos = ss.join_runs(searcher, mega[:total])
+    assert searcher._join_kw[1] == 1
+    tb = ss.device_tables(searcher, cuda)
+    if case == "hot":
+        assert int(cnt.max()) >= 400
+    else:
+        assert tb["index"]["width"] > 256
+    runs = [torch.from_numpy(x).to(cuda) for x in (lo, cnt, pos)]
+    want = ss._expand_join_plain(*runs, tb["join_p"], tb["join_pos"],
+                                 searcher.Lmax)
+    assert want[0].numel() > 100
+    keep = ss.keep_args(searcher, torch.from_numpy(starts).to(cuda),
+                        torch.from_numpy(ends).to(cuda))
+    want_kept = ss._keep_plain(*want, **keep)
+    assert 0 < want_kept[0].numel()
+    for index in (None, tb["index"]):
+        _assert_equal(ss.expand_join(*runs, tb["join_p"], tb["join_pos"],
+                                     searcher.Lmax, index), want)
+        _assert_equal(ss.expand_join(*runs, tb["join_p"], tb["join_pos"],
+                                     searcher.Lmax, index, keep), want_kept)
+    rng = np.random.default_rng(1)
+    at = np.sort(rng.integers(0, len(lo), size=50))
+    empty = [np.insert(lo, at, lo[at]), np.insert(cnt, at, 0),
+             np.insert(pos, at, rng.integers(0, total, size=50))]
+    runs0 = [torch.from_numpy(x).to(cuda) for x in empty]
+    _assert_equal(ss.expand_join(*runs0, tb["join_p"], tb["join_pos"],
+                                 searcher.Lmax, tb["index"]), want)
+    i = int(np.argmax(cnt))
+    one = [x[i:i + 1].contiguous() for x in runs]
+    _assert_equal(ss.expand_join(*one, tb["join_p"], tb["join_pos"],
+                                 searcher.Lmax, tb["index"]),
+                  ss._expand_join_plain(*one, tb["join_p"], tb["join_pos"],
+                                        searcher.Lmax))
+
+
 def test_identify_design_on_cuda_equals_cpu(cuda):
     """Identification ranks over two groupings, on the card and on the
     CPU, give one probe set."""
