@@ -78,10 +78,9 @@ _SIGNATURES = {
     "ct_minhash_sig": [_P, _I64, _I32, _P, _I32, _P, _P],
     "ct_pack_merged": [_P, _P, _P, _I64, _I32, _I32, _P, _P, _P],
     "ct_pack_escapes": [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P],
-    "ct_assemble_rows": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P],
-    "ct_assemble_pairs": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
-    "ct_assemble_maxima": [_P, _P, _I64, _P, _P],
-    "ct_init_covered": [_P, _P, _I64, _I64, _P, _P, _P, _P],
+    "ct_assemble": [_P, _P, _P, _I64, _P, _I64, _I64, _I32, _P, _P, _P, _P,
+                    _P, _P, _P],
+    "ct_init_covered": [_P, _P, _I64, _I32, _I64, _P, _I64, _I64, _P, _P],
     "ct_greedy_v2_steps": [_P, _I64, _P, _P, _I64, _P, _P, _P, _I64, _P, _P,
                            _P, _P, _P, _I64, _I32, _P, _P, _P, _P, _I32,
                            _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -1,6 +1,6 @@
-// Shared pieces of the set-cover kernels (init_covered.cu, greedy_v2.cu,
-// greedy_v1.cu, see catch_tpu_torch/ops/set_cover.py; greedy_sharded.cu,
-// see catch_tpu_torch/parallel/set_cover.py):
+// Shared pieces of the set-cover kernels (greedy_v2.cu, greedy_v1.cu, see
+// catch_tpu_torch/ops/set_cover.py; greedy_sharded.cu, see
+// catch_tpu_torch/parallel/set_cover.py):
 //   - an int32 prefix scan over the position axis in three passes (tile
 //     sums, one block scanning the tile sums, tile writes), with the
 //     item loaded and the inclusive prefix stored through functors;

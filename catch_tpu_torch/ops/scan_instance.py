@@ -972,6 +972,10 @@ def unpack_merged(packed, esc_idx, esc_key, esc_end, b_pos):
 # K10 assemble (stage E)
 # ----------------------------------------------------------------------
 
+# Rows a tile of K10's single pass holds (AS_TILE in csrc/assemble.cu).
+_ASSEMBLE_TILE = 2048
+
+
 @_build.on_own_device
 def assemble(key, start, end, offsets, n_sets):
     """The device solver's boundary-indexed arrays of the merged rows.
@@ -989,47 +993,44 @@ def assemble(key, start, end, offsets, n_sets):
     and interval counts of one set (Python ints, 0 without sets).
 
     Replaces catch_tpu/ops/scan_instance.py _assemble_jit (:712-751),
-    without its power-of-two padding; the kernels are csrc/assemble.cu
-    (bandwidth bound), the pair numbering and set bounds are
-    torch.cumsum and torch.searchsorted.  Coordinates must fit int32
-    (ensure_assembled checks).
+    without its power-of-two padding; the kernel is csrc/assemble.cu,
+    one single-pass kernel (bandwidth bound) that numbers the pairs by a
+    decoupled look-back and takes the set bounds and maxima in the same
+    pass.  One host read a call: the pair count and the two maxima.
+    Coordinates must fit int32 (ensure_assembled checks).
     """
     for t, name in ((key, "key"), (start, "start"), (end, "end"),
                     (offsets, "offsets")):
         _require(t, torch.int64, name)
     if _on_cpu(key, start, end, offsets):
         return _assemble_plain(key, start, end, offsets, n_sets)
-    dev = key.device
     n = key.numel()
     nU = offsets.numel() - 1
-    lib = _build.library()
-    stream = _build.stream_of(key)
-    gs = torch.empty(n, dtype=torch.int32, device=dev)
-    ge = torch.empty(n, dtype=torch.int32, device=dev)
-    first = torch.empty(n, dtype=torch.int64, device=dev)
-    _build.check(lib.ct_assemble_rows(
+
+    def ints(size):
+        return torch.empty(size, dtype=torch.int32, device=key.device)
+
+    gs, ge = ints(n), ints(n)
+    # The pair arrays at capacity (pairs <= rows), cut after the read.
+    pair_bounds, univ_of_pair = ints(n + 1), ints(n)
+    set_bounds = ints(n_sets + 1)
+    # The ticket, (P, max pairs, max intervals), and each tile's
+    # look-back state (a flag, an aggregate and an inclusive prefix of
+    # three ints).
+    ws = ints(4 + 7 * -(-n // _ASSEMBLE_TILE))
+    vec = all(t.data_ptr() % 16 == 0 for t in (key, start, end))
+    _build.check(_build.library().ct_assemble(
         _build.ptr(key), _build.ptr(start), _build.ptr(end), n,
-        _build.ptr(offsets), nU, _build.ptr(gs), _build.ptr(ge),
-        _build.ptr(first), stream), "assemble_rows")
-    incl = torch.cumsum(first, 0)
-    n_pairs = int(incl[-1]) if n else 0
-    set_of_pair = torch.empty(n_pairs, dtype=torch.int32, device=dev)
-    univ_of_pair = torch.empty(n_pairs, dtype=torch.int32, device=dev)
-    pair_bounds = torch.zeros(n_pairs + 1, dtype=torch.int32, device=dev)
-    _build.check(lib.ct_assemble_pairs(
-        _build.ptr(key), _build.ptr(first), _build.ptr(incl), n, nU,
-        _build.ptr(set_of_pair), _build.ptr(univ_of_pair),
-        _build.ptr(pair_bounds), stream), "assemble_pairs")
-    set_bounds = torch.searchsorted(
-        set_of_pair, torch.arange(n_sets + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
-    maxima = torch.zeros(2, dtype=torch.int32, device=dev)
-    _build.check(lib.ct_assemble_maxima(
-        _build.ptr(set_bounds), _build.ptr(pair_bounds), n_sets,
-        _build.ptr(maxima), stream), "assemble_maxima")
+        _build.ptr(offsets), nU, n_sets, int(vec), _build.ptr(gs),
+        _build.ptr(ge), _build.ptr(pair_bounds), _build.ptr(univ_of_pair),
+        _build.ptr(set_bounds), _build.ptr(ws), _build.stream_of(key)),
+        "assemble")
     assemble.launches += 1
-    mp, mi = maxima.tolist()
-    return gs, ge, pair_bounds, set_bounds, univ_of_pair, mp, mi
+    n_pairs, mp, mi = ws[1:4].tolist()
+    if not n_sets:
+        mp = mi = 0
+    return (gs, ge, pair_bounds[:n_pairs + 1], set_bounds,
+            univ_of_pair[:n_pairs], mp, mi)
 
 
 assemble.launches = 0

@@ -77,6 +77,9 @@ _STEPS_PER_DISPATCH = 64
 # Positions a tile of the kernels' prefix scan holds (CT_SCAN_TILE in
 # csrc/greedy.cuh); sizes its tile buffer.
 _SCAN_TILE = 4096
+# Positions a tile of K11's max-scan holds (IC_TILE in
+# csrc/init_covered.cu).
+_IC_TILE = 8192
 
 # K12 (csrc/greedy_v2.cu): positions a tile of its overlap index holds
 # (K12_TILE), threads of a score block (K12_THREADS), and the bits that
@@ -767,8 +770,10 @@ def init_covered(ivl_start, ivl_end, U):
     coordinates in [0, U]; empty intervals add nothing.
 
     Replaces catch_tpu/ops/set_cover.py _init_covered_jit (:661-668);
-    the kernel is csrc/init_covered.cu (a difference array by integer
-    atomics, then a prefix; bandwidth bound).
+    the kernel is csrc/init_covered.cu: one atomicMax a nonempty
+    interval into reach[start], then a single-pass max-scan,
+    covered[i] = max(reach[:i + 1]) <= i (bandwidth bound).  No host
+    read.
     """
     si._require(ivl_start, torch.int32, "ivl_start")
     si._require(ivl_end, torch.int32, "ivl_end")
@@ -776,14 +781,17 @@ def init_covered(ivl_start, ivl_end, U):
         return _init_covered_plain(ivl_start, ivl_end, U)
     dev = ivl_start.device
     covered = torch.empty(U, dtype=torch.bool, device=dev)
-    delta = torch.empty(U + 1, dtype=torch.int32, device=dev)
-    tiles = torch.empty(max(1, -(-U // _SCAN_TILE)), dtype=torch.int32,
-                        device=dev)
+    # The ticket, the look-back state of each tile (flag, aggregate,
+    # inclusive prefix) and reach, 16-byte aligned, in one zeroed buffer.
+    n_tiles = -(-U // _IC_TILE)
+    reach_off = -(-(1 + 3 * n_tiles) // 4) * 4
+    ws = torch.empty(reach_off + U, dtype=torch.int32, device=dev)
+    vec = all(t.data_ptr() % 16 == 0 for t in (ivl_start, ivl_end))
     lib = _build.library()
     _build.check(lib.ct_init_covered(
-        _build.ptr(ivl_start), _build.ptr(ivl_end), ivl_start.numel(), U,
-        _build.ptr(delta), _build.ptr(tiles), _build.ptr(covered),
-        _build.stream_of(ivl_start)), "init_covered")
+        _build.ptr(ivl_start), _build.ptr(ivl_end), ivl_start.numel(),
+        int(vec), U, _build.ptr(ws), ws.numel(), reach_off,
+        _build.ptr(covered), _build.stream_of(ivl_start)), "init_covered")
     init_covered.launches += 1
     return covered
 

@@ -81,7 +81,9 @@ Phases (any failure exits non-zero and prints no result line):
      the greedy steps on the card), counting launches: the FASTA must
      equal torch_ebola175_m2.fasta byte for byte, and assemble,
      init_covered, greedy_v2 and the scan's kernels must have launched,
-     and pack_merged (the host route's readback) not;
+     and pack_merged (the host route's readback) not; the peak
+     allocated device memory before stage E (stage D's) beside the peak
+     after it, which stage E must not raise;
      then phase 7's identify and avoid goldens again under the variable
      (rank tiers on the card);
  15. bench.py's solver instance (bench.py:178-198: 100,000 sets, 128
@@ -90,7 +92,8 @@ Phases (any failure exits non-zero and prints no result line):
      solver, solve_boundary_instance (K10-K12), solve_instance(
      force_device=True) and _solve_device (K13), counting launches: the
      four pick orders must be equal; each is timed;
- 16. assemble and init_covered on phase 14's instance, greedy_v2 on one
+ 16. assemble and init_covered on phase 15's instance (printed, not in
+     the JSON line), then on phase 14's instance, greedy_v2 on one
      64-step dispatch from its initial state, greedy_v1 on one of phase
      15's instance, and greedy_v2 on one of phase 15's instance (printed,
      not in the JSON line), against their twins: exactly equal, the
@@ -1133,6 +1136,28 @@ def recording(module, name, keep):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def peak_around(torch, module, name, log):
+    """module.name wrapped so that each call appends (the peak allocated
+    device bytes before it, the peak after it) to log: the call raised
+    the process's peak where the second is larger."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = torch.cuda.max_memory_allocated()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append((before, torch.cuda.max_memory_allocated()))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
 # The MinHash entry points, and the entry point of each template mode of
 # csrc/minhash_caps.cu's pair kernel (minhash_walk_kernel; before it,
 # minhash_pairs_kernel, modes 0-3).
@@ -1520,12 +1545,19 @@ def device_solve_design(torch, si, profiling, in175):
     from catch_tpu_torch.ops import set_cover as sct
 
     out = os.path.join(WORK, "ebola175_m2_device_solve.fasta")
-    kept = []
+    kept, peaks = [], []
     with solve_on_device(), recording(si, "ensure_assembled",
-                                      lambda a, k, r: kept.append(r)):
+                                      lambda a, k, r: kept.append(r)), \
+            peak_around(torch, si, "ensure_assembled", peaks):
         pb, wall, launches, peak = counted(torch, si, profiling, lambda: design(
             [in175, "-o", out, "-pl", "100", "-m", "2", "-l", "60", "-e",
              "50", "--device", "cuda"]))
+    (before_e, after_e), = peaks
+    print(f"peak allocated device memory before stage E (stage D's) "
+          f"{before_e / 2**20:.1f} MiB, after stage E "
+          f"{after_e / 2**20:.1f} MiB", flush=True)
+    if after_e > before_e:
+        fail("stage E raised the device route's peak device memory")
     if not same_bytes(out, os.path.join(GOLDEN, "torch_ebola175_m2.fasta")):
         fail("ebola175 m2 with the device solver differs from "
              "torch_ebola175_m2.fasta")
@@ -1673,26 +1705,43 @@ def k12_work(torch, sct, what, dev, state0, n_steps):
 
 def check_solver_kernels(torch, device, dev, inst):
     """Phase 16: K10-K13 against their twins: assemble and init_covered
-    on phase 14's instance, one 64-step greedy_v2 dispatch from its
-    initial state, one 64-step greedy_v1 dispatch of phase 15's
-    instance; then greedy_v2 on one 64-step dispatch of phase 15's
-    instance (printed; its row is not in the JSON line, which holds
-    ebola175's).  Returns the JSON rows."""
+    on phase 15's instance (printed first; their rows in the JSON line
+    are ebola175's), then on phase 14's instance, one 64-step greedy_v2
+    dispatch from its initial state, one 64-step greedy_v1 dispatch of
+    phase 15's instance; then greedy_v2 on one 64-step dispatch of
+    phase 15's instance (printed; its row is not in the JSON line,
+    which holds ebola175's).  Returns the JSON rows."""
     from catch_tpu_torch.ops import scan_instance as si
     from catch_tpu_torch.ops import set_cover as sct
 
-    mk, ms, me = dev["merged"]
-    offsets = torch.from_numpy(dev["offsets"]).to(device)
-    n, S, U = mk.numel(), dev["cost"].numel(), dev["u_len"]
-    P, nU = dev["univ_of_pair"].numel(), offsets.numel() - 1
+    n, S, U = dev["merged"][0].numel(), dev["cost"].numel(), dev["u_len"]
+    P, nU = dev["univ_of_pair"].numel(), len(dev["offsets"]) - 1
     n_steps = sct._STEPS_PER_DISPATCH
 
-    def k10(f):
-        out = f(mk, ms, me, offsets, S)
-        return out[:5] + (torch.tensor(out[5:], device=device),)
+    def setup_cases(d):
+        """K10 and K11 on the assembled instance d: the cases of
+        compare().  Bytes each input read once and each output written
+        once, and an operation per element.  K10: 24 bytes a row in, 8
+        out, the pair arrays (pair_bounds, univ_of_pair) and set_bounds
+        out.  K11: the intervals in, a byte a position out."""
+        mk, ms, me = d["merged"]
+        off = torch.from_numpy(d["offsets"]).to(device)
+        n, S, U = mk.numel(), d["cost"].numel(), d["u_len"]
+        P, nU = d["univ_of_pair"].numel(), off.numel() - 1
 
-    def k11(f):
-        return (f(dev["ivl_start"], dev["ivl_end"], U),)
+        def k10(f):
+            out = f(mk, ms, me, off, S)
+            return out[:5] + (torch.tensor(out[5:], device=device),)
+
+        def k11(f):
+            return (f(d["ivl_start"], d["ivl_end"], U),)
+
+        return [
+            ("assemble", k10, si._assemble_plain, si.assemble, 10,
+             (32 * n + 8 * (nU + 1) + 4 * (2 * P + 1) + 4 * (S + 1),
+              n + P + S)),
+            ("init_covered", k11, sct._init_covered_plain, sct.init_covered,
+             20, (8 * n + U, n + U))]
 
     def stepper(state0, consts):
         def call(f):
@@ -1712,11 +1761,8 @@ def check_solver_kernels(torch, device, dev, inst):
           f"sets, {nU} universes, {U} positions; bench instance {M13} "
           f"intervals, {P13} pairs, {inst.n_sets} sets, {inst.u_len} "
           f"positions; {n_steps} steps a dispatch", flush=True)
-    # Bytes each input read once and each output written once, and an
-    # operation per element.  K10: 24 bytes a row in, 8 out, the pair
-    # arrays (pair_bounds, univ_of_pair) and set_bounds out.  K11: the intervals in, a byte a position out.
-    # A K13 step: `covered`, the prefix, and the interval, pair, set and
-    # universe arrays once; K12: k12_work.
+    # K10 and K11: setup_cases.  A K13 step: `covered`, the prefix, and
+    # the interval, pair, set and universe arrays once; K12: k12_work.
     v2 = k12_work(torch, sct, "ebola175", dev, state12, n_steps)
     v1 = step_work(inst.u_len, M13, P13, inst.n_sets, inst.n_universes, 12,
                    8)
@@ -1725,12 +1771,10 @@ def check_solver_kernels(torch, device, dev, inst):
         dev15["ivl_start"], dev15["ivl_end"], dev15["u_len"]),
         dev15["u_size"], inst.n_sets)
     v2_15 = k12_work(torch, sct, "solver instance", dev15, state15, n_steps)
-    rows = compare(torch, [
-        ("assemble", k10, si._assemble_plain, si.assemble, 10,
-         (32 * n + 8 * (nU + 1) + 4 * (2 * P + 1) + 4 * (S + 1),
-          n + P + S)),
-        ("init_covered", k11, sct._init_covered_plain, sct.init_covered, 20,
-         (8 * n + U, n + U)),
+    print("assemble and init_covered on phase 15's solver instance:",
+          flush=True)
+    compare(torch, setup_cases(dev15))
+    rows = compare(torch, setup_cases(dev) + [
         ("greedy_v2", stepper(state12, dev), sct._greedy_steps_v2_plain,
          sct.greedy_steps_v2, 5, v2),
         ("greedy_v1", stepper(state13, consts), sct._greedy_steps_v1_plain,

@@ -1112,11 +1112,75 @@ def test_assemble_equals_twin(cuda, case):
             .astype(np.int32)))
 
 
+def _tile_rows(n, seed, gaps, dev):
+    """n merged rows sorted by key (pairs of 1-4 rows, 7 universes), in
+    sets that skip ids where gaps is set (none at the start, runs in the
+    middle, several after the last); returns the rows on dev and S."""
+    rng = np.random.default_rng(seed)
+    nU = 7
+    per_pair = rng.integers(1, 5, size=n)
+    pairs = np.repeat(np.arange(n), per_pair)[:n]
+    n_pairs = int(pairs[-1]) + 1 if n else 0
+    step = rng.integers(1, 3, size=max(n_pairs, 1))
+    if gaps:
+        step[::37] += rng.integers(1, 30, size=len(step[::37]))
+    pkey = np.cumsum(step)[:n_pairs] + (11 * nU if gaps else 0)
+    key = pkey[pairs] if n else np.zeros(0, dtype=np.int64)
+    start = rng.integers(0, 1000, size=n)
+    end = start + rng.integers(0, 50, size=n)
+    offsets = np.arange(nU + 1, dtype=np.int64) * 1100
+    S = int(key[-1] // nU) + 1 + (9 if gaps else 0) if n else 3
+    rows = [torch.from_numpy(x.astype(np.int64)).to(dev)
+            for x in (key, start, end, offsets)]
+    return rows, S
+
+
+@pytest.mark.parametrize("n,gaps,shift", [
+    (1, False, 0), (2047, False, 0), (2048, False, 0), (2049, True, 0),
+    (5 * 2048 + 17, True, 0), (300001, True, 0), (300001, False, 1),
+    (4097, True, 1)])
+def test_assemble_tile_edges_equal_twin(cuda, n, gaps, shift):
+    """K10 at its tiles' edges (2048 rows a tile), over many tiles, with
+    sets holding no pair before, between and after the others, and on
+    rows that are not 16-byte aligned (shift: a view one row in)."""
+    rows, S = _tile_rows(n + shift, n, gaps, cuda)
+    rows = [x[shift:] for x in rows[:3]] + rows[3:]
+    got = si.assemble(*rows, S)
+    torch.cuda.synchronize()
+    want = si._assemble_plain(*rows, S)
+    _assert_equal(got[:5], want[:5])
+    assert got[5:] == want[5:]
+    if gaps:
+        sb = want[3].cpu()
+        assert (sb[:11] == 0).all() and (sb[-9:] == want[4].numel()).all()
+        assert (torch.diff(sb[11:-9]) == 0).any()
+
+
+def test_assemble_reads_the_host_once(cuda):
+    """One synchronising call a K10 call: the read of (P, max pairs, max
+    intervals)."""
+    import warnings
+
+    rows, S = _tile_rows(50000, 3, True, cuda)
+    si.assemble(*rows, S)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            si.assemble(*rows, S)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in caught]
+
+
 @pytest.mark.parametrize("U", [1, 4095, 4096, 4097, 3 * 4096 + 5,
                                (1 << 20) + 3])
 def test_init_covered_equals_twin(cuda, U):
     """Every tile boundary of the scan, empty intervals, intervals ending
-    at the axis' end, and no intervals at all."""
+    at the axis' end, no intervals at all, and intervals that are not
+    16-byte aligned."""
     from catch_tpu_torch.ops import set_cover as sct
 
     rng = np.random.default_rng(U)
@@ -1131,6 +1195,50 @@ def test_init_covered_equals_twin(cuda, U):
     _assert_equal([got], [sct._init_covered_plain(st, et, U)])
     none = sct.init_covered(st[:0], et[:0], U)
     assert bool(none.all())
+    _assert_equal([sct.init_covered(st[1:], et[1:], U)],
+                  [sct._init_covered_plain(st[1:], et[1:], U)])
+
+
+@pytest.mark.parametrize("U", [4095, 4096, 4097, 33 * 4096 + 16])
+def test_init_covered_deep_overlap_equals_twin(cuda, U):
+    """10^5 intervals over one position, nested and equal ones around
+    it, and a run of touching intervals across tile edges."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    rng = np.random.default_rng(U + 1)
+    at = U // 2
+    s = np.concatenate([np.full(100000, at), at - rng.integers(0, 50, 500),
+                        np.arange(0, U - 7, 7)[::3]])
+    e = np.concatenate([at + 1 + rng.integers(0, 3, 100000),
+                        at + rng.integers(1, 50, 500),
+                        np.arange(7, U, 7)[::3]])
+    perm = rng.permutation(len(s))
+    st, et = (torch.from_numpy(x[perm].astype(np.int32)).to(cuda)
+              for x in (s, np.minimum(e, U)))
+    got = sct.init_covered(st, et, U)
+    torch.cuda.synchronize()
+    want = sct._init_covered_plain(st, et, U)
+    _assert_equal([got], [want])
+    assert not bool(want[at]) and bool(want.any())
+
+
+def test_init_covered_reads_no_host(cuda):
+    """K11 makes no synchronising call."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    U = 100000
+    rng = np.random.default_rng(4)
+    s = rng.integers(0, U, size=5000)
+    st = torch.from_numpy(s.astype(np.int32)).to(cuda)
+    et = torch.from_numpy(np.minimum(U, s + 40).astype(np.int32)).to(cuda)
+    sct.init_covered(st, et, U)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sct.init_covered(st, et, U)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_equal([got], [sct._init_covered_plain(st, et, U)])
 
 
 def _v2_setup(case, dev):
