@@ -87,8 +87,9 @@ _SIGNATURES = {
                            _P, _P, _I32, _I32, _I32, _P],
     "ct_k12_index": [_P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "ct_greedy_v1_steps": [_P, _I64, _P, _P, _I64, _P, _P, _P, _I64, _P, _P,
-                           _P, _I64, _P, _P, _I64, _I32, _I32, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                           _P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P,
+                           _P, _I32, _I64, _I32, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _P],
     "ct_gs_candidate": [_P, _I64, _P, _P, _P, _I64, _P],
     "ct_gs_decide": [_P, _I32, _P, _P, _P, _I64, _I32, _P],
     "ct_gs_collect": [_P, _P, _I64, _P],

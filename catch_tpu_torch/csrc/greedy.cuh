@@ -5,11 +5,16 @@
 //     sums, one block scanning the tile sums, tile writes), with the
 //     item loaded and the inclusive prefix stored through functors;
 //   - a greedy step's segment sums by integer atomics (intervals into
-//     pairs, capped pairs into sets), for the instances that name each
-//     interval's pair and each pair's set;
+//     pairs, capped pairs into sets), for the sharded solver's
+//     instances, which name each interval's pair and each pair's set;
 //   - a greedy step's per-set candidate: eligibility and the float32
 //     ratio, and the block minimum of (ratio, set id);
-//   - the one-block decide step that ends every greedy step.
+//   - the one-block decide step that ends every greedy step;
+//   - for the incremental steps of greedy_v2.cu and greedy_v1.cu, whose
+//     intervals are grouped by pair (pair_bounds) and pairs by set
+//     (set_bounds): each pair's uncovered count from the prefix, once a
+//     call, the score pass of a group of lanes a set, and the bits of
+//     their `stages` argument.
 // Everything is in an anonymous namespace: each source that includes
 // this header gets its own copy of the kernels.
 #pragma once
@@ -24,6 +29,11 @@
 #define CT_SCAN_TILE (CT_SCAN_THREADS * CT_SCAN_ITEMS)  // 4096 items a tile
 #define CT_FULL_MASK 0xFFFFFFFFu
 #define CT_DECIDE_THREADS 1024
+#define CT_GROUP_THREADS 256   // threads of a ct_group_score_kernel block
+#define CT_RECOMPUTE 1         // `stages` bits of the incremental steps
+#define CT_SCORE 2
+#define CT_DECIDE 4
+#define CT_UPDATE 8
 
 namespace {
 
@@ -271,6 +281,90 @@ __global__ void ct_decide_kernel(
         order[*n_chosen] = chosen;
         *n_chosen += 1;
     }
+}
+
+// The inclusive prefix of the scan into prefix[i + 1]; the first item
+// also writes prefix[0] = 0.
+struct PrefixFromZero {
+    int* prefix;
+    __device__ void operator()(int64_t i, int v) const {
+        if (i == 0) prefix[0] = 0;
+        prefix[i + 1] = v;
+    }
+};
+
+// One thread per pair: pair_new[p] = the sum of prefix[end] -
+// prefix[start] over the pair's intervals.
+__global__ void ct_pair_new_kernel(const int* __restrict__ prefix,
+                                   const int* __restrict__ ivl_start,
+                                   const int* __restrict__ ivl_end,
+                                   const int* __restrict__ pair_bounds,
+                                   int64_t P, int* __restrict__ pair_new) {
+    const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= P) return;
+    int s = 0;
+    for (int i = pair_bounds[p]; i < pair_bounds[p + 1]; ++i)
+        s += prefix[ivl_end[i]] - prefix[ivl_start[i]];
+    pair_new[p] = s;
+}
+
+// A group of G = 2^lg lanes per set reads the set's pair_new and
+// univ_of_pair coalesced (none for a set in the cover or outside the rank
+// tier), caps each pair by its universe's need max(len_u - can_uncover,
+// 0) and reduces by shuffles; lane 0 takes the set's candidate
+// (ct_set_candidates).  Blocks of CT_GROUP_THREADS threads.
+__global__ void ct_group_score_kernel(const int* __restrict__ pair_new,
+                                      const int* __restrict__ univ_of_pair,
+                                      const int* __restrict__ set_bounds,
+                                      int64_t S, int lg,
+                                      const int* __restrict__ len_u,
+                                      const int* __restrict__ can_uncover,
+                                      const bool* __restrict__ in_cover,
+                                      const int* __restrict__ rank_idx,
+                                      const int* __restrict__ cur_rank,
+                                      const float* __restrict__ cost,
+                                      float* __restrict__ blk_r,
+                                      int* __restrict__ blk_i,
+                                      int* __restrict__ blk_any) {
+    const int G = 1 << lg;
+    const int lane = threadIdx.x & (G - 1);
+    const int64_t s = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> lg;
+    const int cr = *cur_rank;
+    int p0 = 0, p1 = 0;
+    if (s < S) {
+        // loaded together: a set in the cover or outside the rank tier
+        // is not eligible whatever its score, and its pairs are not read
+        p0 = set_bounds[s];
+        const int end = set_bounds[s + 1];
+        p1 = !in_cover[s] & (rank_idx[s] == cr) ? end : p0;
+    }
+    int sc = 0;
+    for (int p = p0 + lane; p < p1; p += G) {
+        const int u = univ_of_pair[p];
+        sc += min(pair_new[p], max(len_u[u] - can_uncover[u], 0));
+    }
+    for (int d = G >> 1; d >= 1; d >>= 1)
+        sc += __shfl_xor_sync(CT_FULL_MASK, sc, d);
+    ct_set_candidates(s < S && lane == 0 ? s : -1, sc, in_cover, rank_idx,
+                      cr, cost, blk_r, blk_i, blk_any);
+}
+
+// The recompute at the start of an incremental call (4 launches): the
+// uncovered prefix, prefix[i + 1] = positions not covered in [0, i], and
+// from it each pair's uncovered count.  prefix: U + 1 ints; tiles: the
+// scan's tile sums.
+inline void ct_recompute_pair_new(void* covered, int64_t U, void* prefix,
+                                  void* tiles, const void* ivl_start,
+                                  const void* ivl_end,
+                                  const void* pair_bounds, int64_t P,
+                                  void* pair_new, cudaStream_t st) {
+    ct_scan(UncoveredLoad{(const bool*)covered},
+            PrefixFromZero{(int*)prefix}, U, (int*)tiles, st);
+    if (U <= 0) cudaMemsetAsync(prefix, 0, sizeof(int), st);
+    if (P > 0)
+        ct_pair_new_kernel<<<ct_blocks(P, 256), 256, 0, st>>>(
+            (const int*)prefix, (const int*)ivl_start, (const int*)ivl_end,
+            (const int*)pair_bounds, P, (int*)pair_new);
 }
 
 }  // namespace

@@ -8,8 +8,8 @@
 // and a replica of covered, len_u, order, n_chosen, cur_rank and stop.  A
 // step has four phases, each one entry point for one place:
 //   candidate  the uncovered prefix of the place's replica, the segment
-//              sums of its shard (greedy.cuh, as K13), eligibility and the
-//              float32 ratio, and the shard's first minimum as (ratio,
+//              sums of its shard (greedy.cuh's atomics), eligibility and
+//              the float32 ratio, and the shard's first minimum as (ratio,
 //              global set id, any eligible) in slot d of the candidates;
 //              a shard without sets offers (+inf, base);
 //   decide     greedy.cuh's decide step over the n candidates (catch_tpu's

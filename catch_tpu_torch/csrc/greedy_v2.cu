@@ -11,15 +11,17 @@
 //   recompute, once a call (4 launches): the uncovered prefix,
 //      prefix[i + 1] = positions not covered in [0, i] (the three-pass
 //      scan of greedy.cuh, which also writes prefix[0]), then one thread
-//      per pair sums prefix[end] - prefix[start] over its intervals;
+//      per pair sums prefix[end] - prefix[start] over its intervals
+//      (greedy.cuh's ct_recompute_pair_new);
 //   then each step, 3 launches:
-//   1. score: a group of G lanes per set (G a power of two up to 32,
-//      from the largest pair count of a set) reads the set's pair_new
-//      and univ_of_pair coalesced (none for a set in the cover or
-//      outside the rank tier), caps each pair by its universe's need
-//      max(len_u - can_uncover, 0) and reduces by shuffles; lane 0
-//      applies eligibility and the float32 ratio, and each block keeps
-//      its first (ratio, set id) minimum (ct_set_candidates);
+//   1. score (greedy.cuh's ct_group_score_kernel): a group of G lanes
+//      per set (G a power of two up to 32, from the largest pair count
+//      of a set) reads the set's pair_new and univ_of_pair coalesced
+//      (none for a set in the cover or outside the rank tier), caps
+//      each pair by its universe's need max(len_u - can_uncover, 0)
+//      and reduces by shuffles; lane 0 applies eligibility and the
+//      float32 ratio, and each block keeps its first (ratio, set id)
+//      minimum (ct_set_candidates);
 //   2. decide: ct_decide_kernel (greedy.cuh);
 //   3. update, nothing unless the step picked: a block per piece of the
 //      chosen set, a piece being one interval cut to one tile of
@@ -47,72 +49,8 @@
 #include "greedy.cuh"
 
 #define K12_TILE 256           // positions a tile of the overlap index
-#define K12_THREADS 256        // threads of a score block
-#define K12_RECOMPUTE 1        // `stages` bits of ct_greedy_v2_steps
-#define K12_SCORE 2
-#define K12_DECIDE 4
-#define K12_UPDATE 8
 
 namespace {
-
-// The inclusive prefix of the scan into prefix[i + 1]; the first item
-// also writes prefix[0] = 0.
-struct PrefixFromZero {
-    int* prefix;
-    __device__ void operator()(int64_t i, int v) const {
-        if (i == 0) prefix[0] = 0;
-        prefix[i + 1] = v;
-    }
-};
-
-__global__ void k12_pair_new_kernel(const int* __restrict__ prefix,
-                                    const int* __restrict__ ivl_start,
-                                    const int* __restrict__ ivl_end,
-                                    const int* __restrict__ pair_bounds,
-                                    int64_t P, int* __restrict__ pair_new) {
-    const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= P) return;
-    int s = 0;
-    for (int i = pair_bounds[p]; i < pair_bounds[p + 1]; ++i)
-        s += prefix[ivl_end[i]] - prefix[ivl_start[i]];
-    pair_new[p] = s;
-}
-
-__global__ void k12_score_kernel(const int* __restrict__ pair_new,
-                                 const int* __restrict__ univ_of_pair,
-                                 const int* __restrict__ set_bounds,
-                                 int64_t S, int lg,
-                                 const int* __restrict__ len_u,
-                                 const int* __restrict__ can_uncover,
-                                 const bool* __restrict__ in_cover,
-                                 const int* __restrict__ rank_idx,
-                                 const int* __restrict__ cur_rank,
-                                 const float* __restrict__ cost,
-                                 float* __restrict__ blk_r,
-                                 int* __restrict__ blk_i,
-                                 int* __restrict__ blk_any) {
-    const int G = 1 << lg;
-    const int lane = threadIdx.x & (G - 1);
-    const int64_t s = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> lg;
-    const int cr = *cur_rank;
-    int p0 = 0, p1 = 0;
-    if (s < S) {
-        // loaded together: a set in the cover or outside the rank tier
-        // is not eligible whatever its score, and its pairs are not read
-        p0 = set_bounds[s];
-        const int end = set_bounds[s + 1];
-        p1 = !in_cover[s] & (rank_idx[s] == cr) ? end : p0;
-    }
-    int sc = 0;
-    for (int p = p0 + lane; p < p1; p += G) {
-        const int u = univ_of_pair[p];
-        sc += min(pair_new[p], max(len_u[u] - can_uncover[u], 0));
-    }
-    for (int d = G >> 1; d >= 1; d >>= 1)
-        sc += __shfl_xor_sync(CT_FULL_MASK, sc, d);
-    ct_set_candidates(s < S && lane == 0 ? s : -1, sc, in_cover, rank_idx,
-                      cr, cost, blk_r, blk_i, blk_any);
-}
 
 // Launched with max_pieces blocks of K12_TILE threads; block b takes
 // piece b of the chosen set, if it has that many.
@@ -233,9 +171,10 @@ extern "C" int ct_k12_index(const void* ivl_start, const void* ivl_end,
     return (int)cudaGetLastError();
 }
 
-// `stages` selects the launches (K12_* bits): all of them for a call of
-// n_steps steps from step0; one at a time for a split timed by events
-// between calls.  lg: log2 of the lanes a set; nb: its score blocks.
+// `stages` selects the launches (greedy.cuh's CT_* bits): all of them
+// for a call of n_steps steps from step0; one at a time for a split
+// timed by events between calls.  lg: log2 of the lanes a set; nb:
+// its score blocks.
 extern "C" int ct_greedy_v2_steps(
         void* covered, int64_t U, void* len_u, const void* can_uncover,
         int64_t nU, void* in_cover, const void* cost, const void* rank_idx,
@@ -249,36 +188,30 @@ extern "C" int ct_greedy_v2_steps(
         void* blk_any, void* dec, int step0, int n_steps, int stages,
         void* stream) {
     cudaStream_t st = ct_stream(stream);
-    if (stages & K12_RECOMPUTE) {
-        ct_scan(UncoveredLoad{(const bool*)covered},
-                PrefixFromZero{(int*)prefix}, U, (int*)tiles, st);
-        if (U <= 0) cudaMemsetAsync(prefix, 0, sizeof(int), st);
-        if (P > 0)
-            k12_pair_new_kernel<<<ct_blocks(P, 256), 256, 0, st>>>(
-                (const int*)prefix, (const int*)ivl_start,
-                (const int*)ivl_end, (const int*)pair_bounds, P,
-                (int*)pair_new);
+    if (stages & CT_RECOMPUTE) {
+        ct_recompute_pair_new(covered, U, prefix, tiles, ivl_start, ivl_end,
+                              pair_bounds, P, pair_new, st);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
     const unsigned n_upd = max_pieces > 0 ? max_pieces : 1;
     for (int step = step0; step < step0 + n_steps; ++step) {
-        if ((stages & K12_SCORE) && S > 0)
-            k12_score_kernel<<<(unsigned)nb, K12_THREADS, 0, st>>>(
+        if ((stages & CT_SCORE) && S > 0)
+            ct_group_score_kernel<<<(unsigned)nb, CT_GROUP_THREADS, 0, st>>>(
                 (const int*)pair_new, (const int*)univ_of_pair,
                 (const int*)set_bounds, S, lg, (const int*)len_u,
                 (const int*)can_uncover, (const bool*)in_cover,
                 (const int*)rank_idx, (const int*)cur_rank,
                 (const float*)cost, (float*)blk_r, (int*)blk_i,
                 (int*)blk_any);
-        if (stages & K12_DECIDE)
+        if (stages & CT_DECIDE)
             ct_decide_kernel<<<1, CT_DECIDE_THREADS, 0, st>>>(
                 (const float*)blk_r, (const int*)blk_i, (const int*)blk_any,
                 S > 0 ? nb : 0, (const int*)len_u, (const int*)can_uncover,
                 nU, n_rank_vals, (int*)cur_rank, (bool*)stop,
                 (bool*)in_cover, (int*)dec, (int*)chosens, (bool*)picks,
                 step, nullptr, nullptr);
-        if (stages & K12_UPDATE)
+        if (stages & CT_UPDATE)
             k12_update_kernel<<<n_upd, K12_TILE, 0, st>>>(
                 (const int*)dec, (const int*)set_bounds,
                 (const int*)pair_bounds, (const int*)piece_off,

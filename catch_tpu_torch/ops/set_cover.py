@@ -18,10 +18,11 @@ picks come back.  Its kernels (sources in catch_tpu_torch/csrc/):
                     intervals (catch_tpu _init_covered_jit)
   K12 greedy_v2     greedy steps over boundary-indexed arrays, for
                     solve_boundary_instance (_steps_jit_v2)
-  K13 greedy_v1     greedy steps with segment sums over a host
-                    SetCoverInstance: solve_instance(force_device=True)
-                    and the device-resident loop _solve_device
-                    (_steps_jit, _solve_jit_padded)
+  K13 greedy_v1     greedy steps over a host SetCoverInstance, regrouped
+                    set-major once a solve (set_major_index):
+                    solve_instance(force_device=True) and the
+                    device-resident loop _solve_device (_steps_jit,
+                    _solve_jit_padded)
 
 A step's state is a dict: covered (bool[U]), len_u (int32[nU],
 uncovered positions per universe), in_cover (bool[S]), cur_rank and
@@ -36,8 +37,9 @@ universes and empty intervals), and the fallback from a failed device
 solve to the host; a device solve that fails, or that reaches its
 dispatch bound without stopping, raises.  Kept: an instance whose
 position axis does not fit int32 is solved on the host, a size checked
-before any launch (_DEVICE_AXIS_LIMIT); so is one whose K12 overlap
-index would not (_K12_PIECE_LIMIT, a limit catch_tpu does not have).
+before any launch (_DEVICE_AXIS_LIMIT); so is one whose K12 or K13
+overlap index would not (_K12_PIECE_LIMIT, a limit catch_tpu does not
+have).
 Every kernel wrapper runs its plain-PyTorch twin (same module, name
 suffixed _plain) for CPU tensors and its kernel for CUDA tensors, and
 counts its launches in an integer attribute `launches`; the wrappers
@@ -81,17 +83,19 @@ _SCAN_TILE = 4096
 # csrc/init_covered.cu).
 _IC_TILE = 8192
 
-# K12 (csrc/greedy_v2.cu): positions a tile of its overlap index holds
-# (K12_TILE), threads of a score block (K12_THREADS), and the bits that
-# select its launches (K12_RECOMPUTE and the others).
+# K12 and K13 (csrc/greedy_v2.cu, csrc/greedy_v1.cu): positions a tile
+# of their overlap indexes holds (K12_TILE, K13_TILE), threads of a
+# score block (CT_GROUP_THREADS in csrc/greedy.cuh), and the bits that
+# select their launches (CT_RECOMPUTE and the others).
 _K12_TILE = 256
-_K12_THREADS = 256
-_K12_STAGES = dict(recompute=1, score=2, decide=4, update=8)
+_GROUP_THREADS = 256
+_STAGES = dict(recompute=1, score=2, decide=4, update=8)
 
-# K12's overlap index numbers its pieces (an interval cut to one tile)
-# with int32 offsets: an assembled instance whose index would hold this
-# many pieces or more is solved on the host (solve_boundary_instance),
-# as catch_tpu, whose _steps_jit_v2 builds no index, solves it.
+# K12's and K13's indexes number their pieces (an interval cut to one
+# tile) with int32 offsets: an instance whose index would hold this many
+# pieces or more is solved on the host (solve_boundary_instance,
+# _solve_device_steps, _solve_device), as catch_tpu, whose steps build
+# no index, solves it.
 _K12_PIECE_LIMIT = np.iinfo(np.int32).max
 
 
@@ -748,7 +752,8 @@ def _step_tensors(state, consts, const_names, n_steps):
 
 
 def _scratch(dev, U, P, S):
-    """The per-dispatch scratch of the greedy kernels."""
+    """The per-dispatch scratch of the sharded greedy kernels
+    (parallel/set_cover.py)."""
     def ints(n):
         return torch.empty(max(n, 1), dtype=torch.int32, device=dev)
     nb = -(-S // 256)
@@ -897,8 +902,8 @@ def overlap_index(ivl_start, ivl_end, pair_bounds, set_bounds, univ_of_pair,
                          "index's int32 offsets")
     piece_off = piece_off.to(torch.int32)
     if si._on_cpu(ivl_start):
-        tile_ptr, tile_ivl = _tile_lists_plain(ivl_start, piece_off,
-                                               n_pieces, n_total, U, tile)
+        tile_ptr, tile_ivl = _tile_lists_plain(*_pieces(
+            ivl_start, piece_off, n_pieces, n_total, tile), U, tile)
     else:
         if tile != _K12_TILE:
             raise ValueError(f"the card's overlap index has tiles of "
@@ -938,58 +943,97 @@ def k12_piece_count(dev):
         dtype=torch.int64))
 
 
-def _tile_lists_plain(ivl_start, piece_off, n_pieces, n_total, U, tile):
-    """(tile_ptr, tile_ivl) of overlap_index by a stable sort of the
-    pieces by tile."""
+def _pieces(ivl_start, piece_off, n_pieces, n_total, tile):
+    """(interval, tile) of every piece (int32[n_total] each), in interval
+    order and, within an interval, in position order."""
     dev = ivl_start.device
     ivl = torch.repeat_interleave(
         torch.arange(ivl_start.numel(), dtype=torch.int32, device=dev),
         n_pieces, output_size=n_total)
     # piece g of interval i lies in tile ivl_start[i] // tile + g -
     # piece_off[i]
-    tile_of = torch.index_select(ivl_start // tile - piece_off[:-1], 0, ivl)
+    tile_of = torch.index_select(
+        ivl_start // tile - piece_off[:-1].to(torch.int32), 0, ivl)
     tile_of += torch.arange(n_total, dtype=torch.int32, device=dev)
+    return ivl, tile_of
+
+
+def _tile_lists_plain(ivl, tile_of, U, tile):
+    """(tile_ptr, tile_ivl) of an overlap index by a stable sort of the
+    pieces (ivl, tile_of) by tile."""
     tile_of, order = torch.sort(tile_of, stable=True)
     tile_ptr = torch.searchsorted(tile_of, torch.arange(
-        -(-U // tile) + 1, dtype=torch.int32, device=dev), out_int32=True)
+        -(-U // tile) + 1, dtype=torch.int32, device=ivl.device),
+        out_int32=True)
     return tile_ptr, ivl[order]
+
+
+def _kept_index(consts, key, U, build):
+    """build() at the first call, kept in consts under `key` and built
+    again if ivl_start was replaced or U changed."""
+    idx = consts.get(key)
+    if idx is None or idx["of"] is not consts["ivl_start"] \
+            or idx["U"] != U:
+        idx = build()
+        idx.update(of=consts["ivl_start"], U=U)
+        consts[key] = idx
+    return idx
 
 
 def k12_index(consts, U):
     """The overlap index of `consts` over U positions, built by
     overlap_index at the first call and kept in consts under
     "_k12_index" (built again if ivl_start was replaced)."""
-    idx = consts.get("_k12_index")
-    if idx is None or idx["of"] is not consts["ivl_start"] \
-            or idx["U"] != U:
-        idx = overlap_index(*(consts[k] for k in (
-            "ivl_start", "ivl_end", "pair_bounds", "set_bounds",
-            "univ_of_pair")), U)
-        idx.update(of=consts["ivl_start"], U=U)
-        consts["_k12_index"] = idx
-    return idx
+    return _kept_index(consts, "_k12_index", U, lambda: overlap_index(*(
+        consts[k] for k in ("ivl_start", "ivl_end", "pair_bounds",
+                            "set_bounds", "univ_of_pair")), U))
 
 
-def _greedy_steps_v2_cuda(state, consts, n_steps, steps=None):
-    """greedy_steps_v2 on the card.  `steps`, when given, has a
-    mark(name) method; each launch is then a call of its own, marked
-    after it as "recompute", "score", "decide" or "update"
-    (tools/k12_split.py times them with CUDA events)."""
-    U, nU = state["covered"].numel(), state["len_u"].numel()
-    S, P = consts["cost"].numel(), consts["univ_of_pair"].numel()
-    idx = k12_index(consts, U)
-    dev = state["covered"].device
-    lg = min(5, max(0, idx["max_pairs"] - 1).bit_length())
-    nb = -(-(S << lg) // _K12_THREADS)
+def _step_scratch(dev, U, P, S, max_pairs, n_steps):
+    """The per-call scratch of K12 and K13, with lg (log2 of the lanes a
+    set of the score pass, from the most pairs of a set) and nb (its
+    blocks)."""
+    lg = min(5, max(0, max_pairs - 1).bit_length())
+    nb = -(-(S << lg) // _GROUP_THREADS)
 
     def ints(n):
         return torch.empty(max(n, 1), dtype=torch.int32, device=dev)
 
-    chosens = torch.empty(n_steps, dtype=torch.int32, device=dev)
-    picks = torch.empty(n_steps, dtype=torch.bool, device=dev)
-    blk_r = torch.empty(max(nb, 1), dtype=torch.float32, device=dev)
-    prefix, tiles, pair_new = ints(U + 1), ints(-(-U // _SCAN_TILE)), ints(P)
-    blk_i, blk_any, dec = ints(nb), ints(nb), ints(2)
+    return dict(lg=lg, nb=nb,
+                chosens=torch.empty(n_steps, dtype=torch.int32, device=dev),
+                picks=torch.empty(n_steps, dtype=torch.bool, device=dev),
+                prefix=ints(U + 1), tiles=ints(-(-U // _SCAN_TILE)),
+                pair_new=ints(P),
+                blk_r=torch.empty(max(nb, 1), dtype=torch.float32,
+                                  device=dev),
+                blk_i=ints(nb), blk_any=ints(nb), dec=ints(2))
+
+
+def _run_stages(run, n_steps, steps):
+    """run(step0, n, stages) for a call of n_steps steps: at once, or,
+    where `steps` is given (it has a mark(name) method), one launch a
+    call, marked after it as "recompute", "score", "decide" or "update"
+    (tools/k12_split.py and tools/k13_split.py time them with CUDA
+    events)."""
+    if steps is None:
+        run(0, n_steps, sum(_STAGES.values()))
+        return
+    steps.mark("start")
+    run(0, 0, _STAGES["recompute"])
+    steps.mark("recompute")
+    for t in range(n_steps):
+        for name in ("score", "decide", "update"):
+            run(t, 1, _STAGES[name])
+            steps.mark(name)
+
+
+def _greedy_steps_v2_cuda(state, consts, n_steps, steps=None):
+    """greedy_steps_v2 on the card; `steps`: see _run_stages."""
+    U, nU = state["covered"].numel(), state["len_u"].numel()
+    S, P = consts["cost"].numel(), consts["univ_of_pair"].numel()
+    idx = k12_index(consts, U)
+    w = _step_scratch(state["covered"].device, U, P, S, idx["max_pairs"],
+                      n_steps)
     c, p = consts, _build.ptr
     args = (p(state["covered"]), U, p(state["len_u"]), p(c["can_uncover"]),
             nU, p(state["in_cover"]), p(c["cost"]), p(c["rank_idx"]), S,
@@ -997,27 +1041,16 @@ def _greedy_steps_v2_cuda(state, consts, n_steps, steps=None):
             p(c["set_bounds"]), p(c["univ_of_pair"]), P,
             int(c["n_rank_vals"]), p(idx["ivl_rec"]),
             p(idx["piece_off"]), p(idx["tile_ptr"]), p(idx["tile_ivl"]),
-            lg, nb, idx["max_pieces"], p(state["cur_rank"]), p(state["stop"]),
-            p(chosens), p(picks), p(prefix), p(tiles), p(pair_new),
-            p(blk_r), p(blk_i), p(blk_any), p(dec))
-    stream = _build.stream_of(chosens)
+            w["lg"], w["nb"], idx["max_pieces"], p(state["cur_rank"]),
+            p(state["stop"]), p(w["chosens"]), p(w["picks"]), p(w["prefix"]),
+            p(w["tiles"]), p(w["pair_new"]), p(w["blk_r"]), p(w["blk_i"]),
+            p(w["blk_any"]), p(w["dec"]))
+    stream = _build.stream_of(w["chosens"])
     lib = _build.library()
-
-    def run(step0, n, stages):
-        _build.check(lib.ct_greedy_v2_steps(*args, step0, n, stages, stream),
-                     "greedy_v2")
-
-    if steps is None:
-        run(0, n_steps, sum(_K12_STAGES.values()))
-        return state, chosens, picks
-    steps.mark("start")
-    run(0, 0, _K12_STAGES["recompute"])
-    steps.mark("recompute")
-    for t in range(n_steps):
-        for name in ("score", "decide", "update"):
-            run(t, 1, _K12_STAGES[name])
-            steps.mark(name)
-    return state, chosens, picks
+    _run_stages(lambda step0, n, stages: _build.check(
+        lib.ct_greedy_v2_steps(*args, step0, n, stages, stream),
+        "greedy_v2"), n_steps, steps)
+    return state, w["chosens"], w["picks"]
 
 
 @_build.on_own_device
@@ -1028,7 +1061,11 @@ def greedy_steps_v1(state, consts, n_steps):
     n_chosen in it, each pick is also appended there on the device.
     consts: ivl_start / ivl_end / pair_of_ivl (int32[M]), set_of_pair /
     univ_of_pair (int32[P]), cost (float32[S]), rank_idx (int32[S]),
-    can_uncover (int32[nU]) and the int n_rank_vals.
+    can_uncover (int32[nU]) and the int n_rank_vals; pairs and
+    intervals in any order, intervals possibly overlapping.  On the
+    card, the first call also keeps the instance regrouped set-major in
+    consts (k13_index); past _K12_PIECE_LIMIT pieces that raises
+    ValueError.
 
     Returns (state, chosens int32[n_steps], picks bool[n_steps]), as
     greedy_steps_v2.
@@ -1036,35 +1073,137 @@ def greedy_steps_v1(state, consts, n_steps):
     Replaces catch_tpu/ops/set_cover.py _steps_jit (:630-658) and
     _greedy_core (:292-347), and with the order kept on the device the
     loop of _solve_jit_padded (:917-945); the kernel is
-    csrc/greedy_v1.cu (segment sums by integer atomics).
+    csrc/greedy_v1.cu (K12's incremental step on the regrouped
+    instance, with an update exact for overlapping intervals; 3
+    launches a step, no host synchronisation inside).
     """
-    tensors, (U, nU, S, M, P) = _step_tensors(state, consts, _V1_CONSTS,
-                                              n_steps)
+    tensors, _ = _step_tensors(state, consts, _V1_CONSTS, n_steps)
     if si._on_cpu(*tensors):
         return _greedy_steps_v1_plain(state, consts, n_steps)
-    dev = state["covered"].device
-    chosens = torch.empty(n_steps, dtype=torch.int32, device=dev)
-    picks = torch.empty(n_steps, dtype=torch.bool, device=dev)
-    w = _scratch(dev, U, P, S)
-    c, p = consts, _build.ptr
-    keep = "order" in state
-    lib = _build.library()
-    _build.check(lib.ct_greedy_v1_steps(
-        p(state["covered"]), U, p(state["len_u"]), p(c["can_uncover"]), nU,
-        p(state["in_cover"]), p(c["cost"]), p(c["rank_idx"]), S,
-        p(c["ivl_start"]), p(c["ivl_end"]), p(c["pair_of_ivl"]), M,
-        p(c["set_of_pair"]), p(c["univ_of_pair"]), P, int(c["n_rank_vals"]),
-        n_steps, p(state["cur_rank"]), p(state["stop"]), p(chosens),
-        p(picks), p(state["order"]) if keep else None,
-        p(state["n_chosen"]) if keep else None, p(w["prefix"]),
-        p(w["tiles"]), p(w["pair_new"]), p(w["pair_aux"]), p(w["blk_r"]),
-        p(w["blk_i"]), p(w["blk_any"]), p(w["dec"]),
-        _build.stream_of(chosens)), "greedy_v1")
+    out = _greedy_steps_v1_cuda(state, consts, n_steps)
     greedy_steps_v1.launches += 1
-    return state, chosens, picks
+    return out
 
 
 greedy_steps_v1.launches = 0
+
+
+def set_major_index(ivl_start, ivl_end, pair_of_ivl, set_of_pair,
+                    univ_of_pair, n_sets, U, tile=_K12_TILE):
+    """K13's instance regrouped set-major, on the instance's device.
+
+    Pair ids never leave a step, so the pairs are renumbered in set
+    order and the intervals grouped by the new pair ids (stable sorts:
+    the pairs of a set and the intervals of a pair keep their order);
+    set ids stay the instance's.  Intervals may overlap.  A piece is a
+    non-empty interval cut to one tile of `tile` positions.  Returns a
+    dict:
+      ivl_start, ivl_end (int32[M]), the intervals regrouped;
+      pair_bounds (int32[P + 1]), set_bounds (int32[n_sets + 1]) and
+        univ_of_pair (int32[P]), by the new pair ids;
+      ivl_rec (int32[M, 4]): each regrouped interval's start, end, new
+        pair and universe;
+      tile_ptr (int32[ceil(U / tile) + 1]) and tile_ivl
+        (int32[pieces]): the intervals that meet tile t are
+        tile_ivl[tile_ptr[t]:tile_ptr[t + 1]], ascending;
+      set_grp (int32[n_sets + 1]), grp_tile (int32[G]), grp_off
+        (int32[G + 1]) and grp_ivl (int32[pieces]): set s meets the
+        tiles grp_tile[set_grp[s]:set_grp[s + 1]], ascending, and the
+        set's intervals that meet the tile of group g are
+        grp_ivl[grp_off[g]:grp_off[g + 1]];
+      max_pairs and max_groups, the most pairs and tiles of one set (0
+        without sets).
+    Raises ValueError before anything is built where there would be
+    _K12_PIECE_LIMIT pieces or more.  Library sorts, scans and searches
+    on either device.
+    """
+    dev = ivl_start.device
+    M, P = ivl_start.numel(), set_of_pair.numel()
+    n_pieces = _k12_pieces(ivl_start, ivl_end, tile)
+    n_total = int(n_pieces.sum(dtype=torch.int64))
+    if n_total >= _K12_PIECE_LIMIT:
+        raise ValueError(f"{n_total} pieces do not fit the overlap "
+                         "index's int32 offsets")
+    sets, pair_order = torch.sort(set_of_pair, stable=True)
+    new_pair = torch.empty_like(set_of_pair)
+    new_pair[pair_order] = torch.arange(P, dtype=torch.int32, device=dev)
+    pairs, ivl_order = torch.sort(new_pair[pair_of_ivl.long()], stable=True)
+    starts, ends = ivl_start[ivl_order], ivl_end[ivl_order]
+    univ = univ_of_pair[pair_order]
+    n_pieces = n_pieces[ivl_order]
+    piece_off = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+    piece_off[1:] = torch.cumsum(n_pieces, 0)
+    ivl, tile_of = _pieces(starts, piece_off, n_pieces, n_total, tile)
+    tile_ptr, tile_ivl = _tile_lists_plain(ivl, tile_of, U, tile)
+    # the pieces are in set order (the intervals are): sort each set's
+    # by tile, then one group a (set, tile)
+    n_tiles = max(1, -(-U // tile))
+    key = sets[pairs.long()].long()[ivl.long()] * n_tiles + tile_of
+    key, order = torch.sort(key, stable=True)
+    keys, counts = torch.unique_consecutive(key, return_counts=True)
+    grp_off = torch.zeros(keys.numel() + 1, dtype=torch.int32, device=dev)
+    grp_off[1:] = torch.cumsum(counts, 0)
+
+    def bounds(ids, n):
+        """The first index of each of the ids 0..n in the sorted ids."""
+        return torch.searchsorted(ids, torch.arange(
+            n + 1, dtype=ids.dtype, device=dev), out_int32=True)
+
+    set_bounds, set_grp = bounds(sets, n_sets), bounds(keys // n_tiles,
+                                                      n_sets)
+    maxima = torch.stack([torch.diff(set_bounds).max(),
+                          torch.diff(set_grp).max()]).tolist() \
+        if n_sets else [0, 0]
+    return dict(ivl_start=starts, ivl_end=ends,
+                pair_bounds=bounds(pairs, P), set_bounds=set_bounds,
+                univ_of_pair=univ,
+                ivl_rec=torch.stack([starts, ends, pairs,
+                                     univ[pairs.long()]], dim=1),
+                tile_ptr=tile_ptr, tile_ivl=tile_ivl, set_grp=set_grp,
+                grp_tile=(keys % n_tiles).to(torch.int32), grp_off=grp_off,
+                grp_ivl=ivl[order], max_pairs=maxima[0],
+                max_groups=maxima[1])
+
+
+def k13_index(consts, U):
+    """set_major_index of `consts` over U positions, built at the first
+    call and kept in consts under "_k13_index" (built again if
+    ivl_start was replaced)."""
+    return _kept_index(consts, "_k13_index", U, lambda: set_major_index(*(
+        consts[k] for k in ("ivl_start", "ivl_end", "pair_of_ivl",
+                            "set_of_pair", "univ_of_pair")),
+        consts["cost"].numel(), U))
+
+
+def _greedy_steps_v1_cuda(state, consts, n_steps, steps=None):
+    """greedy_steps_v1 on the card; `steps`: see _run_stages."""
+    U, nU = state["covered"].numel(), state["len_u"].numel()
+    S, P = consts["cost"].numel(), consts["univ_of_pair"].numel()
+    idx = k13_index(consts, U)
+    w = _step_scratch(state["covered"].device, U, P, S, idx["max_pairs"],
+                      n_steps)
+    c, p = consts, _build.ptr
+    keep = "order" in state
+    args = (p(state["covered"]), U, p(state["len_u"]), p(c["can_uncover"]),
+            nU, p(state["in_cover"]), p(c["cost"]), p(c["rank_idx"]), S,
+            *(p(idx[k]) for k in ("ivl_start", "ivl_end", "pair_bounds",
+                                  "set_bounds", "univ_of_pair")),
+            P, int(c["n_rank_vals"]),
+            *(p(idx[k]) for k in ("ivl_rec", "tile_ptr", "tile_ivl",
+                                  "set_grp", "grp_tile", "grp_off",
+                                  "grp_ivl")),
+            w["lg"], w["nb"], idx["max_groups"], p(state["cur_rank"]),
+            p(state["stop"]), p(w["chosens"]), p(w["picks"]),
+            p(state["order"]) if keep else None,
+            p(state["n_chosen"]) if keep else None, p(w["prefix"]),
+            p(w["tiles"]), p(w["pair_new"]), p(w["blk_r"]), p(w["blk_i"]),
+            p(w["blk_any"]), p(w["dec"]))
+    stream = _build.stream_of(w["chosens"])
+    lib = _build.library()
+    _run_stages(lambda step0, n, stages: _build.check(
+        lib.ct_greedy_v1_steps(*args, step0, n, stages, stream),
+        "greedy_v1"), n_steps, steps)
+    return state, w["chosens"], w["picks"]
 
 
 def _uncovered_prefix(covered):
@@ -1316,12 +1455,30 @@ def _instance_consts(inst, device):
     return consts, put(inst.u_size, np.int32)
 
 
+def _k13_fits(inst):
+    """Whether K13's index of the host instance holds fewer than
+    _K12_PIECE_LIMIT pieces (counted on the host); where it would not,
+    logs the warning of the host route, which the caller then takes
+    before any launch."""
+    n = int(_k12_pieces(torch.from_numpy(np.asarray(inst.ivl_start)),
+                        torch.from_numpy(np.asarray(inst.ivl_end))).sum())
+    if n < _K12_PIECE_LIMIT:
+        return True
+    logger.warning("K13's overlap index exceeds int32; falling back to the "
+                   "host solver")
+    return False
+
+
 def _solve_device_steps(inst, device):
     """Device solve of a host instance as a host loop of K13 dispatches,
-    each reading back only its step vectors and the stop flag.
+    each reading back only its step vectors and the stop flag.  Where
+    K13's index would not fit int32 (_k13_fits), the host lazy solver
+    runs instead, with a warning; the picks are the same.
 
     Replaces catch_tpu/ops/set_cover.py _solve_device_steps (:712-748).
     """
+    if not _k13_fits(inst):
+        return _solve_host_lazy(inst)
     consts, u_size = _instance_consts(inst, device)
     covered = init_covered(consts["ivl_start"], consts["ivl_end"],
                            inst.u_len)
@@ -1334,11 +1491,14 @@ def _solve_device(inst, device):
     """Device-resident solve of a host instance: K11, then K13 steps
     until the stop flag, with the pick order kept on the device; only
     the stop flag comes back between dispatches, and the order at the
-    end.
+    end.  Where K13's index would not fit int32, the host lazy solver
+    runs instead, as in _solve_device_steps.
 
     Replaces catch_tpu/ops/set_cover.py _solve_device (:948-961) and its
     while loop _solve_jit_padded (:917-945).
     """
+    if not _k13_fits(inst):
+        return _solve_host_lazy(inst)
     consts, u_size = _instance_consts(inst, device)
     covered = init_covered(consts["ivl_start"], consts["ivl_end"],
                            inst.u_len)

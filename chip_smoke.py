@@ -98,8 +98,10 @@ Phases (any failure exits non-zero and prints no result line):
      15's instance, and greedy_v2 on one of phase 15's instance (printed,
      not in the JSON line), against their twins: exactly equal, the
      whole state included; CUDA-event medians, min and max; greedy_v2's
-     bound the smaller of a full recompute every step and the
-     incremental design's own bytes (k12_work).
+     and greedy_v1's bounds the smaller of a full recompute every step
+     and the incremental design's own bytes (incremental_work);
+     greedy_v1's regrouping timed apart and its launches counted by
+     torch.profiler: 3 a step.
 
  17. the device mesh, with CATCH_TPU_VIRTUAL_DEVICES=4 set for this
      process (four places on the one card; restored after): ebola175 m2
@@ -1669,32 +1671,42 @@ def step_work(U, M, P, S, nU, ivl_bytes, pair_bytes):
             + 8 * nU, U + M + P + S)
 
 
-def k12_work(torch, sct, what, dev, state0, n_steps):
-    """The (bytes, operations) of one K12 dispatch of n_steps from
-    state0 that bound_ms takes: the smaller bound of (a) a full
-    recompute every step (step_work, catch_tpu's step) and (b) the
+def union_positions(starts, ends):
+    """Positions that the intervals (int64 numpy arrays) hold, each
+    counted once."""
+    import numpy as np
+
+    order = np.argsort(starts, kind="stable")
+    s, e = starts[order], ends[order]
+    reach = np.maximum.accumulate(np.concatenate([s[:1], e]))[:-1]
+    return int(np.clip(e - np.maximum(s, reach), 0, None).sum())
+
+
+def incremental_work(name, what, U, S, nU, d, chosens, picks, full_step):
+    """The (bytes, operations) of one K12 or K13 dispatch that bound_ms
+    takes: the smaller bound of (a) a full recompute every step
+    (full_step = step_work of one step, catch_tpu's) and (b) the
     incremental design's own: the recompute once (`covered` and the
     intervals read, the prefix and pair_new written, pair_bounds read),
     each step's score pass (pair_new and univ_of_pair, 8 bytes a pair;
     the set arrays, 13 bytes a set; the universe arrays), and each
-    pick's chosen positions read and written.  The picks are the twin's
-    on a copy of state0."""
-    U, S = dev["u_len"], dev["cost"].numel()
-    M, P = dev["ivl_start"].numel(), dev["univ_of_pair"].numel()
-    nU = dev["can_uncover"].numel()
-    _, chosens, picks = sct._greedy_steps_v2_plain(
-        {k: v.clone() for k, v in state0.items()}, dev, n_steps)
-    pb, sb = dev["pair_bounds"].long(), dev["set_bounds"].long()
-    lengths = torch.zeros(M + 1, dtype=torch.int64, device=pb.device)
-    lengths[1:] = torch.cumsum(dev["ivl_end"] - dev["ivl_start"], 0)
-    c = chosens[picks].long()
-    chosen_pos = int((lengths[pb[sb[c + 1]]] - lengths[pb[sb[c]]]).sum())
-    full = step_work(U, M, P, S, nU, 8, 8)
-    full = (n_steps * full[0], n_steps * full[1])
+    pick's chosen positions (the union of the set's intervals) read and
+    written.  d: the instance grouped by pair and set (ivl_start,
+    ivl_end, pair_bounds, set_bounds); chosens and picks: the twin's
+    steps."""
+    import numpy as np
+
+    s, e, pb, sb = (d[k].cpu().numpy().astype(np.int64) for k in (
+        "ivl_start", "ivl_end", "pair_bounds", "set_bounds"))
+    M, P, n_steps = len(s), len(pb) - 1, len(picks)
+    chosen_pos = sum(union_positions(s[pb[sb[c]]:pb[sb[c + 1]]],
+                                     e[pb[sb[c]]:pb[sb[c + 1]]])
+                     for c in chosens[picks].tolist())
+    full = (n_steps * full_step[0], n_steps * full_step[1])
     incr = (U + 4 * (U + 1) + 8 * M + 8 * P + 4
             + n_steps * (8 * P + 13 * S + 8 * nU) + 2 * chosen_pos,
             U + M + P + n_steps * (P + S) + chosen_pos)
-    print(f"greedy_v2 work ({what}, {n_steps} steps, {int(picks.sum())} "
+    print(f"{name} work ({what}, {n_steps} steps, {int(picks.sum())} "
           f"picks over {chosen_pos} chosen positions): a full recompute "
           f"every step {full[0]} bytes, {full[1]} operations (bound "
           f"{bound(full)[0]:.4f} ms); the incremental step's own "
@@ -1703,14 +1715,84 @@ def k12_work(torch, sct, what, dev, state0, n_steps):
     return min(full, incr, key=lambda w: bound(w)[0])
 
 
+def k12_work(torch, sct, what, dev, state0, n_steps):
+    """incremental_work of one K12 dispatch of n_steps from state0 on
+    the assembled instance dev; the picks are the twin's on a copy of
+    state0."""
+    U, S = dev["u_len"], dev["cost"].numel()
+    M, P = dev["ivl_start"].numel(), dev["univ_of_pair"].numel()
+    nU = dev["can_uncover"].numel()
+    _, chosens, picks = sct._greedy_steps_v2_plain(
+        {k: v.clone() for k, v in state0.items()}, dev, n_steps)
+    return incremental_work("greedy_v2", what, U, S, nU, dev, chosens.cpu(),
+                            picks.cpu(), step_work(U, M, P, S, nU, 8, 8))
+
+
+def device_launches(torch, fn):
+    """{name: launches} of the port's own launches (kernels and memsets)
+    in one fn() call, from torch.profiler (CUDA activity).  A capture
+    after earlier ones in a process can lose its first kernel records
+    (utils/profiling.py _WARM_UP_LAUNCHES), so the capture first launches
+    as many one-element adds (PyTorch's kernels, at::native) and waits;
+    PyTorch's own kernels are left out of the count."""
+    from catch_tpu_torch.utils import profiling
+
+    w = torch.zeros(1, device="cuda")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiling._WARM_UP_LAUNCHES):
+            w.add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key[:60]: ev.count for ev in prof.key_averages()
+            if "at::native" not in ev.key
+            and (getattr(ev, "device_time_total", None)
+                 or getattr(ev, "cuda_time_total", 0))}
+
+
+def k13_dispatch(torch, sct, inst, consts, state0, n_steps):
+    """K13 on one n_steps dispatch of phase 15's instance: the
+    regrouping's CUDA-event time apart from the dispatch's (the
+    dispatch in phase 16's row finds it kept in consts), the launches
+    of one dispatch by name and a step (launches of n_steps or more a
+    dispatch, over n_steps; 3 by the design: fails otherwise), and the
+    work of the bound (incremental_work, the old full recompute 12 bytes
+    an interval)."""
+    idx = sct.k13_index(consts, inst.u_len)
+    rebuild = (lambda: sct.set_major_index(*(consts[k] for k in (
+        "ivl_start", "ivl_end", "pair_of_ivl", "set_of_pair",
+        "univ_of_pair")), inst.n_sets, inst.u_len))
+    ms, lo, hi = cuda_ms(torch, rebuild, 5)
+    print(f"greedy_v1's regrouping (set_major_index, once a solve): "
+          f"{ms:.3f} ms [{lo:.3f}, {hi:.3f}]; {idx['tile_ivl'].numel()} "
+          f"pieces, {idx['grp_tile'].numel()} set tiles, at most "
+          f"{idx['max_groups']} a set", flush=True)
+    state = {k: v.clone() for k, v in state0.items()}
+    counts = device_launches(torch, lambda: sct.greedy_steps_v1(
+        state, consts, n_steps))
+    per_step = sum(n for n in counts.values() if n >= n_steps) / n_steps
+    print(f"greedy_v1 launches in one {n_steps}-step dispatch: {counts}; "
+          f"{per_step:g} a step", flush=True)
+    if per_step != 3:
+        fail(f"greedy_v1 makes {per_step:g} launches a step, not 3")
+    _, chosens, picks = sct._greedy_steps_v1_plain(
+        {k: v.clone() for k, v in state0.items()}, consts, n_steps)
+    U, S, nU = inst.u_len, inst.n_sets, inst.n_universes
+    M, P = len(inst.ivl_start), len(inst.set_of_pair)
+    return incremental_work("greedy_v1", "solver instance", U, S, nU, idx,
+                            chosens.cpu(), picks.cpu(),
+                            step_work(U, M, P, S, nU, 12, 8))
+
+
 def check_solver_kernels(torch, device, dev, inst):
     """Phase 16: K10-K13 against their twins: assemble and init_covered
     on phase 15's instance (printed first; their rows in the JSON line
     are ebola175's), then on phase 14's instance, one 64-step greedy_v2
     dispatch from its initial state, one 64-step greedy_v1 dispatch of
-    phase 15's instance; then greedy_v2 on one 64-step dispatch of
-    phase 15's instance (printed; its row is not in the JSON line,
-    which holds ebola175's).  Returns the JSON rows."""
+    phase 15's instance (after k13_dispatch); then greedy_v2 on one
+    64-step dispatch of phase 15's instance (printed; its row is not in
+    the JSON line, which holds ebola175's).  Returns the JSON rows."""
     from catch_tpu_torch.ops import scan_instance as si
     from catch_tpu_torch.ops import set_cover as sct
 
@@ -1761,11 +1843,9 @@ def check_solver_kernels(torch, device, dev, inst):
           f"sets, {nU} universes, {U} positions; bench instance {M13} "
           f"intervals, {P13} pairs, {inst.n_sets} sets, {inst.u_len} "
           f"positions; {n_steps} steps a dispatch", flush=True)
-    # K10 and K11: setup_cases.  A K13 step: `covered`, the prefix, and
-    # the interval, pair, set and universe arrays once; K12: k12_work.
+    # K10 and K11: setup_cases; K12: k12_work; K13: k13_dispatch.
     v2 = k12_work(torch, sct, "ebola175", dev, state12, n_steps)
-    v1 = step_work(inst.u_len, M13, P13, inst.n_sets, inst.n_universes, 12,
-                   8)
+    v1 = k13_dispatch(torch, sct, inst, consts, state13, n_steps)
     dev15 = sct.assembled_instance(inst, device)
     state15 = sct.initial_state(sct.init_covered(
         dev15["ivl_start"], dev15["ivl_end"], dev15["u_len"]),
@@ -1778,7 +1858,7 @@ def check_solver_kernels(torch, device, dev, inst):
         ("greedy_v2", stepper(state12, dev), sct._greedy_steps_v2_plain,
          sct.greedy_steps_v2, 5, v2),
         ("greedy_v1", stepper(state13, consts), sct._greedy_steps_v1_plain,
-         sct.greedy_steps_v1, 5, (n_steps * v1[0], n_steps * v1[1])),
+         sct.greedy_steps_v1, 5, v1),
     ])
     print("greedy_v2 on phase 15's solver instance:", flush=True)
     compare(torch, [("greedy_v2", stepper(state15, dev15),
@@ -2467,8 +2547,8 @@ TRACE_KERNELS = {
         "segmented_merge": ("sm_bounds_kernel", "sm_hist_kernel",
                             "sm_warp_kernel", "sm_block_kernel",
                             "sm_device_kernel", "sm_emit_kernel")},
-    "set_cover_solve": {"greedy_v2": ("k12_pair_new_kernel",
-                                      "k12_score_kernel",
+    "set_cover_solve": {"greedy_v2": ("ct_pair_new_kernel",
+                                      "ct_group_score_kernel",
                                       "k12_update_kernel")},
     "cover_scan_verify": {"verify_spans": ("VsParams",)},
 }

@@ -20,7 +20,9 @@ kernels, probe lengths 75 to 250, every alignment mod 16, K from 0 to
 more than four codes with 'N' and PAD; for greedy_v2, a set of more
 pairs than a block, sets with no pairs, intervals across many tiles of
 its overlap index, position axes at the scan's tile edges and a stop
-mid-dispatch.  Every comparison is exact.
+mid-dispatch; for greedy_v1, the same shapes, pairs and intervals in
+random order, intervals that overlap within a pair and a set, and its
+regrouping rebuilt.  Every comparison is exact.
 """
 
 import numpy as np
@@ -1438,21 +1440,193 @@ def test_greedy_v2_keeps_its_index(cuda):
     _assert_equal(_state_tuple(*got), _state_tuple(*want))
 
 
-@pytest.mark.parametrize("case", ["random", "ties", "nothing"])
-@pytest.mark.parametrize("keep_order", [False, True])
-def test_greedy_v1_equals_twin(cuda, case, keep_order):
+def shuffled_instance(inst, seed):
+    """The instance (of either package's class) with its pair ids
+    permuted and its intervals in a random order."""
+    rng = np.random.default_rng(seed)
+    P, M = len(inst.set_of_pair), len(inst.ivl_start)
+    new_of_old = rng.permutation(P)
+    old_of_new = np.argsort(new_of_old)
+    ivl = rng.permutation(M)
+    fields = dict(inst.__dict__)
+    fields.update(
+        ivl_start=inst.ivl_start[ivl], ivl_end=inst.ivl_end[ivl],
+        pair_of_ivl=new_of_old[inst.pair_of_ivl[ivl]].astype(np.int32),
+        set_of_pair=inst.set_of_pair[old_of_new],
+        univ_of_pair=inst.univ_of_pair[old_of_new])
+    return type(inst)(**fields)
+
+
+def overlapping_instance(seed):
+    """A port SetCoverInstance that no build_instance* makes: the
+    intervals of a pair overlap, a set holds several pairs of one
+    universe, pairs and intervals are in random order, a set holds no
+    pair, and some intervals are empty.  Universe u owns positions
+    [200u, 200u + 200); u_size counts the positions any interval holds,
+    as build_instance does; two rank tiers and partial coverage."""
     from catch_tpu_torch.ops import set_cover as sct
 
-    inst = _cover_instance(case)
-    consts, u_size = sct._instance_consts(inst, cuda)
+    rng = np.random.default_rng(seed)
+    S, nU, P, M = 18, 3, 40, 150
+    set_of_pair = rng.integers(0, S - 1, size=P).astype(np.int32)
+    univ_of_pair = rng.integers(0, nU, size=P).astype(np.int32)
+    pair_of_ivl = rng.integers(0, P, size=M).astype(np.int32)
+    base = 200 * univ_of_pair[pair_of_ivl].astype(np.int64)
+    start = base + rng.integers(0, 190, size=M)
+    end = np.minimum(base + 200, start + rng.integers(0, 70, size=M))
+    end[::11] = start[::11]
+    held = np.zeros(200 * nU, dtype=bool)
+    for a, b in zip(start, end):
+        held[a:b] = True
+    u_size = held.reshape(nU, 200).sum(axis=1).astype(np.int64)
+    p = np.array([1.0, 0.8, 0.6])
+    return sct.SetCoverInstance(
+        n_sets=S, n_universes=nU, u_size=u_size,
+        can_uncover=np.floor(u_size - p * u_size).astype(np.int64),
+        ivl_start=start, ivl_end=end, pair_of_ivl=pair_of_ivl,
+        set_of_pair=set_of_pair, univ_of_pair=univ_of_pair,
+        cost=rng.choice([1.0, 2.0, 10.0], size=S).astype(np.float32),
+        rank_idx=(np.arange(S) % 5 == 4).astype(np.int32), n_rank_vals=2,
+        u_len=200 * nU, pos_univ_offsets=200 * np.arange(nU + 1))
+
+
+# greedy_v1's cases past _cover_instance's: its random instance
+# shuffled, and two overlapping ones
+V1_CASES = ["random", "ties", "nothing", "shuffled", "overlap1", "overlap2"]
+
+
+def _v1_instance(case):
+    if case == "shuffled":
+        return shuffled_instance(_cover_instance("random"), 3)
+    if case.startswith("overlap"):
+        return overlapping_instance(int(case[-1]))
+    return _cover_instance(case)
+
+
+def _v1_setup(inst, dev, keep_order):
+    from catch_tpu_torch.ops import set_cover as sct
+
+    consts, u_size = sct._instance_consts(inst, dev)
     covered = sct.init_covered(consts["ivl_start"], consts["ivl_end"],
                                inst.u_len)
-    state0 = sct.initial_state(covered, u_size, inst.n_sets, keep_order)
+    return consts, sct.initial_state(covered, u_size, inst.n_sets,
+                                     keep_order)
+
+
+@pytest.mark.parametrize("case", V1_CASES)
+@pytest.mark.parametrize("keep_order", [False, True])
+def test_greedy_v1_equals_twin(cuda, case, keep_order):
+    """One 64-step dispatch on the card against the twin, state included
+    (the stop latches mid-dispatch); then 64 single-step dispatches give
+    the same steps and state."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _v1_instance(case)
+    consts, state0 = _v1_setup(inst, cuda, keep_order)
     got = sct.greedy_steps_v1(_clone(state0), consts, 64)
     torch.cuda.synchronize()
     want = sct._greedy_steps_v1_plain(_clone(state0), consts, 64)
     _assert_equal(_state_tuple(*got), _state_tuple(*want))
-    assert bool(got[0]["stop"])
+    state, chosens, picks = got
+    assert bool(state["stop"])
+    assert picks.any() == (case != "nothing")
+    single = _clone(state0)
+    for t in range(64):
+        single, ch, pk = sct.greedy_steps_v1(single, consts, 1)
+        assert ch.item() == chosens[t].item() and pk.item() == picks[t].item()
+    _assert_equal(_state_tuple(single, chosens, picks), _state_tuple(*got))
+
+
+@pytest.mark.parametrize("name", V2_SHAPES)
+def test_greedy_v1_shapes_equal_twin(cuda, name):
+    """greedy_v1 on K12's shapes (segment ids, the order kept on the
+    card): two 64-step dispatches against the twin, state included; the
+    step solver and the device-resident loop give the host lazy
+    solver's picks."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _v2_shape(name)
+    consts, state0 = _v1_setup(inst, cuda, True)
+    got, want = _clone(state0), _clone(state0)
+    for _ in range(2):
+        g = sct.greedy_steps_v1(got, consts, 64)
+        torch.cuda.synchronize()
+        w = sct._greedy_steps_v1_plain(want, consts, 64)
+        _assert_equal(_state_tuple(*g), _state_tuple(*w))
+    assert int(got["n_chosen"]) > 0
+    idx = consts["_k13_index"]
+    if name == "long":
+        assert idx["max_groups"] >= 20
+    want = sct.solve_instance(inst)
+    assert np.array_equal(sct.solve_instance(inst, force_device=True,
+                                             device=cuda), want)
+    assert np.array_equal(sct._solve_device(inst, cuda), want)
+
+
+@pytest.mark.parametrize("name", ["random", "overlap1", "shuffled"])
+def test_set_major_index_equals_twin(cuda, name):
+    """The regrouping on the card equals the one on the CPU, array for
+    array (both are library sorts and searches)."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _v1_instance(name)
+    consts, _ = _v1_setup(inst, cuda, False)
+    args = [consts[k] for k in ("ivl_start", "ivl_end", "pair_of_ivl",
+                                "set_of_pair", "univ_of_pair")]
+    got = sct.set_major_index(*args, inst.n_sets, inst.u_len)
+    want = sct.set_major_index(*[x.cpu() for x in args], inst.n_sets,
+                               inst.u_len)
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(got[k].cpu(), v), k
+        else:
+            assert got[k] == v, k
+
+
+def test_greedy_v1_keeps_its_regrouping(cuda):
+    """The regrouping is built once per instance and again only when the
+    instance's intervals are replaced; after the rebuild the steps still
+    equal the twin's."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _v1_instance("overlap2")
+    consts, state0 = _v1_setup(inst, cuda, True)
+    sct.greedy_steps_v1(_clone(state0), consts, 4)
+    idx = consts["_k13_index"]
+    sct.greedy_steps_v1(_clone(state0), consts, 4)
+    assert consts["_k13_index"] is idx
+    consts["ivl_start"] = consts["ivl_start"].clone()
+    got = sct.greedy_steps_v1(_clone(state0), consts, 64)
+    assert consts["_k13_index"] is not idx
+    want = sct._greedy_steps_v1_plain(_clone(state0), consts, 64)
+    _assert_equal(_state_tuple(*got), _state_tuple(*want))
+
+
+def test_greedy_v1_reads_no_host_and_raises_past_the_limit(cuda,
+                                                           monkeypatch):
+    """Once the regrouping is kept, a K13 call makes no synchronising
+    call; with the piece limit at the instance's count, a new
+    regrouping raises before any launch."""
+    from catch_tpu_torch.ops import set_cover as sct
+
+    inst = _v1_instance("random")
+    consts, state0 = _v1_setup(inst, cuda, True)
+    want = sct._greedy_steps_v1_plain(_clone(state0), consts, 64)
+    sct.greedy_steps_v1(_clone(state0), consts, 4)
+    state = _clone(state0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sct.greedy_steps_v1(state, consts, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_equal(_state_tuple(*got), _state_tuple(*want))
+    monkeypatch.setattr(sct, "_K12_PIECE_LIMIT", sct.k12_piece_count(consts))
+    consts["ivl_start"] = consts["ivl_start"].clone()
+    n = sct.greedy_steps_v1.launches
+    with pytest.raises(ValueError, match="int32"):
+        sct.greedy_steps_v1(_clone(state0), consts, 4)
+    assert sct.greedy_steps_v1.launches == n
 
 
 @pytest.mark.parametrize("case", ["random", "ties"])
