@@ -90,10 +90,8 @@ _SIGNATURES = {
                            _P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P,
                            _P, _I32, _I64, _I32, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _P],
-    "ct_gs_candidate": [_P, _I64, _P, _P, _P, _I64, _P],
-    "ct_gs_decide": [_P, _I32, _P, _P, _P, _I64, _I32, _P],
-    "ct_gs_collect": [_P, _P, _I64, _P],
-    "ct_gs_apply": [_P, _P, _I32, _P],
+    "ct_gs_steps": [_P, _I32, _P, _I32, _I64, _I64, _I32, _I64, _I64, _I64,
+                    _P, _I32, _P],
 }
 
 _lock = threading.Lock()

@@ -147,17 +147,10 @@ def partition_from_reference(ref, inst):
                          ref["rank_loc"][d][:n_sets]),
                      base=d * S_loc)
         shards.append(shard)
-    set_of_pair = np.asarray(inst.set_of_pair)
-    per_set = max(S, 1)
     return dict(
         shards=shards, S_loc=S_loc, n_sets=S,
         n_universes=int(inst.n_universes), u_len=int(inst.u_len),
-        n_rank_vals=int(ref["n_rank_vals"]),
-        max_ivls_per_set=int(np.bincount(
-            set_of_pair[np.asarray(inst.pair_of_ivl)],
-            minlength=per_set).max()),
-        max_pairs_per_set=int(np.bincount(set_of_pair,
-                                          minlength=per_set).max()))
+        n_rank_vals=int(ref["n_rank_vals"]))
 
 
 def sharded_states_from_reference(state, part, places):

@@ -3,20 +3,19 @@
 // catch_tpu_torch/parallel/set_cover.py):
 //   - an int32 prefix scan over the position axis in three passes (tile
 //     sums, one block scanning the tile sums, tile writes), with the
-//     item loaded and the inclusive prefix stored through functors;
-//   - a greedy step's segment sums by integer atomics (intervals into
-//     pairs, capped pairs into sets), for the sharded solver's
-//     instances, which name each interval's pair and each pair's set;
+//     item loaded and the inclusive prefix stored through functors, for
+//     one row or, with the row on blockIdx.y, several rows at once;
 //   - a greedy step's per-set candidate: eligibility and the float32
 //     ratio, and the block minimum of (ratio, set id);
 //   - the one-block decide step that ends every greedy step;
-//   - for the incremental steps of greedy_v2.cu and greedy_v1.cu, whose
-//     intervals are grouped by pair (pair_bounds) and pairs by set
-//     (set_bounds): each pair's uncovered count from the prefix, once a
-//     call, the score pass of a group of lanes a set, and the bits of
-//     their `stages` argument.
-// Everything is in an anonymous namespace: each source that includes
-// this header gets its own copy of the kernels.
+//   - for the incremental steps, whose intervals are grouped by pair
+//     (pair_bounds) and pairs by set (set_bounds): each pair's uncovered
+//     count from the prefix, once a call, the score pass of a group of
+//     lanes a set, and the bits of their `stages` argument.
+// The decide step, the pair count and the score pass are device
+// functions too, so that greedy_sharded.cu runs them for each place of
+// a table.  Everything is in an anonymous namespace: each source that
+// includes this header gets its own copy of the kernels.
 #pragma once
 
 #include <climits>
@@ -65,7 +64,8 @@ __device__ __forceinline__ int ct_block_excl_scan(int x, int* total) {
     return before + v - x;
 }
 
-// Pass 1: the sum of each tile of CT_SCAN_TILE items.
+// Pass 1: the sum of each tile of CT_SCAN_TILE items.  Row blockIdx.y
+// keeps its gridDim.x tile sums at sums + blockIdx.y * gridDim.x.
 template <class Load>
 __global__ void ct_scan_tile_sums(Load load, int64_t n,
                                   int* __restrict__ sums) {
@@ -76,12 +76,14 @@ __global__ void ct_scan_tile_sums(Load load, int64_t n,
         if (base + j < n) s += load(base + j);
     int total;
     ct_block_excl_scan(s, &total);
-    if (threadIdx.x == 0) sums[blockIdx.x] = total;
+    if (threadIdx.x == 0)
+        sums[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = total;
 }
 
-// Pass 2: one block turns the tile sums into exclusive tile offsets, in
-// place.
+// Pass 2: one block a row turns the row's tile sums into exclusive tile
+// offsets, in place.
 __global__ void ct_scan_carry(int* __restrict__ sums, int64_t nt) {
+    sums += blockIdx.x * nt;
     int run = 0;
     for (int64_t c0 = 0; c0 < nt; c0 += blockDim.x) {
         const int64_t t = c0 + threadIdx.x;
@@ -106,68 +108,40 @@ __global__ void ct_scan_write(Load load, Store store, int64_t n,
         s += v[j];
     }
     int total;
-    int run = offs[blockIdx.x] + ct_block_excl_scan(s, &total);
+    int run = offs[(int64_t)blockIdx.y * gridDim.x + blockIdx.x]
+              + ct_block_excl_scan(s, &total);
     for (int j = 0; j < CT_SCAN_ITEMS; ++j) {
         run += v[j];
         if (base + j < n) store(base + j, run);
     }
 }
 
-// Inclusive scan of load(0..n) into store; `tiles` holds
-// ceil(n / CT_SCAN_TILE) ints.
+// Inclusive scans of load(0..n) into store, one a row: the functors
+// read the row from blockIdx.y.  `tiles` holds rows * ceil(n /
+// CT_SCAN_TILE) ints.
+template <class Load, class Store>
+void ct_scan_rows(Load load, Store store, int64_t n, int rows, int* tiles,
+                  cudaStream_t st) {
+    if (n <= 0 || rows <= 0) return;
+    const int64_t nt = (n + CT_SCAN_TILE - 1) / CT_SCAN_TILE;
+    const dim3 grid((unsigned)nt, rows);
+    ct_scan_tile_sums<<<grid, CT_SCAN_THREADS, 0, st>>>(load, n, tiles);
+    ct_scan_carry<<<rows, 1024, 0, st>>>(tiles, nt);
+    ct_scan_write<<<grid, CT_SCAN_THREADS, 0, st>>>(load, store, n, tiles);
+}
+
+// The scan of one row; `tiles` holds ceil(n / CT_SCAN_TILE) ints.
 template <class Load, class Store>
 void ct_scan(Load load, Store store, int64_t n, int* tiles,
              cudaStream_t st) {
-    if (n <= 0) return;
-    const int64_t nt = (n + CT_SCAN_TILE - 1) / CT_SCAN_TILE;
-    ct_scan_tile_sums<<<(unsigned)nt, CT_SCAN_THREADS, 0, st>>>(load, n,
-                                                                tiles);
-    ct_scan_carry<<<1, 1024, 0, st>>>(tiles, nt);
-    ct_scan_write<<<(unsigned)nt, CT_SCAN_THREADS, 0, st>>>(load, store, n,
-                                                            tiles);
+    ct_scan_rows(load, store, n, 1, tiles, st);
 }
 
-// The uncovered indicator, and prefix[i + 1] = uncovered in [0, i].
+// The uncovered indicator.
 struct UncoveredLoad {
     const bool* covered;
     __device__ int operator()(int64_t i) const { return covered[i] ? 0 : 1; }
 };
-
-struct PrefixStore {
-    int* prefix;
-    __device__ void operator()(int64_t i, int v) const { prefix[i + 1] = v; }
-};
-
-// Segment sums of a step, pass 1: one thread per interval adds
-// prefix[end] - prefix[start] to pair_new[pair_of_ivl].
-__global__ void ct_ivl_sums_kernel(const int* __restrict__ prefix,
-                                   const int* __restrict__ ivl_start,
-                                   const int* __restrict__ ivl_end,
-                                   const int* __restrict__ pair_of_ivl,
-                                   int64_t M, int* __restrict__ pair_new) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= M) return;
-    const int v = prefix[ivl_end[i]] - prefix[ivl_start[i]];
-    if (v != 0) atomicAdd(&pair_new[pair_of_ivl[i]], v);
-}
-
-// Pass 2: one thread per pair adds min(pair_new, need of its universe)
-// to score[set_of_pair - set_base] (set_base: the first set id of the
-// score array, 0 unless the sets are sharded).
-__global__ void ct_pair_scores_kernel(const int* __restrict__ pair_new,
-                                      const int* __restrict__ set_of_pair,
-                                      const int* __restrict__ univ_of_pair,
-                                      int64_t P,
-                                      const int* __restrict__ len_u,
-                                      const int* __restrict__ can_uncover,
-                                      int set_base, int* __restrict__ score) {
-    const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= P) return;
-    const int u = univ_of_pair[p];
-    const int need = max(len_u[u] - can_uncover[u], 0);
-    const int capped = min(pair_new[p], need);
-    if (capped != 0) atomicAdd(&score[set_of_pair[p] - set_base], capped);
-}
 
 // (ratio, set id) a is better than b: a smaller ratio, or the same ratio
 // and a lower id (the first argmin, as jnp.argmin and torch.argmin).
@@ -235,6 +209,24 @@ __device__ __forceinline__ void ct_set_candidates(
     }
 }
 
+// The first (ratio, id) minimum over nb blocks' candidates into (r, i),
+// for every thread of the block; returns whether any block had an
+// eligible set.  Every thread must call.
+__device__ __forceinline__ int ct_min_of_blocks(
+        const float* __restrict__ blk_r, const int* __restrict__ blk_i,
+        const int* __restrict__ blk_any, int64_t nb, float& r, int& i) {
+    r = INFINITY;
+    i = INT_MAX;
+    int any = 0;
+    for (int64_t b = threadIdx.x; b < nb; b += blockDim.x) {
+        if (ct_better(blk_r[b], blk_i[b], r, i)) { r = blk_r[b]; i = blk_i[b]; }
+        any |= blk_any[b];
+    }
+    any = __syncthreads_or(any);
+    ct_block_min(r, i);
+    return any;
+}
+
 // The decide step (one block of CT_DECIDE_THREADS): the global first
 // argmin over the set blocks, active = any universe still needs
 // positions, then pick, rank advance, stop and the chosen set's
@@ -244,25 +236,20 @@ __device__ __forceinline__ void ct_set_candidates(
 // dec[0..1] = (chosen, pick) for the update kernel; the step's chosen
 // and pick also go to chosens/picks[step] and, for the device-resident
 // solver, order[n_chosen++] (either pointer may be null).
-__global__ void ct_decide_kernel(
+__device__ __forceinline__ void ct_decide(
         const float* __restrict__ blk_r, const int* __restrict__ blk_i,
         const int* __restrict__ blk_any, int64_t nb,
         const int* __restrict__ len_u, const int* __restrict__ can_uncover,
         int64_t nU, int n_rank_vals, int* cur_rank, bool* stop,
         bool* in_cover, int* dec, int* chosens, bool* picks, int step,
         int* order, int* n_chosen) {
-    float r = INFINITY;
-    int i = INT_MAX;
-    int any = 0, act = 0;
-    for (int64_t b = threadIdx.x; b < nb; b += blockDim.x) {
-        if (ct_better(blk_r[b], blk_i[b], r, i)) { r = blk_r[b]; i = blk_i[b]; }
-        any |= blk_any[b];
-    }
+    float r;
+    int i;
+    const int any = ct_min_of_blocks(blk_r, blk_i, blk_any, nb, r, i);
+    int act = 0;
     for (int64_t u = threadIdx.x; u < nU; u += blockDim.x)
         act |= len_u[u] - can_uncover[u] > 0;
-    any = __syncthreads_or(any);
     act = __syncthreads_or(act);
-    ct_block_min(r, i);
     if (threadIdx.x != 0) return;
     const int chosen = nb > 0 ? i : 0;
     const bool pick = act && any;
@@ -283,6 +270,18 @@ __global__ void ct_decide_kernel(
     }
 }
 
+__global__ void ct_decide_kernel(
+        const float* __restrict__ blk_r, const int* __restrict__ blk_i,
+        const int* __restrict__ blk_any, int64_t nb,
+        const int* __restrict__ len_u, const int* __restrict__ can_uncover,
+        int64_t nU, int n_rank_vals, int* cur_rank, bool* stop,
+        bool* in_cover, int* dec, int* chosens, bool* picks, int step,
+        int* order, int* n_chosen) {
+    ct_decide(blk_r, blk_i, blk_any, nb, len_u, can_uncover, nU,
+              n_rank_vals, cur_rank, stop, in_cover, dec, chosens, picks,
+              step, order, n_chosen);
+}
+
 // The inclusive prefix of the scan into prefix[i + 1]; the first item
 // also writes prefix[0] = 0.
 struct PrefixFromZero {
@@ -293,13 +292,12 @@ struct PrefixFromZero {
     }
 };
 
-// One thread per pair: pair_new[p] = the sum of prefix[end] -
+// Thread p of the grid's x axis: pair_new[p] = the sum of prefix[end] -
 // prefix[start] over the pair's intervals.
-__global__ void ct_pair_new_kernel(const int* __restrict__ prefix,
-                                   const int* __restrict__ ivl_start,
-                                   const int* __restrict__ ivl_end,
-                                   const int* __restrict__ pair_bounds,
-                                   int64_t P, int* __restrict__ pair_new) {
+__device__ __forceinline__ void ct_pair_new(
+        const int* __restrict__ prefix, const int* __restrict__ ivl_start,
+        const int* __restrict__ ivl_end, const int* __restrict__ pair_bounds,
+        int64_t P, int* __restrict__ pair_new) {
     const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= P) return;
     int s = 0;
@@ -308,24 +306,28 @@ __global__ void ct_pair_new_kernel(const int* __restrict__ prefix,
     pair_new[p] = s;
 }
 
+__global__ void ct_pair_new_kernel(const int* __restrict__ prefix,
+                                   const int* __restrict__ ivl_start,
+                                   const int* __restrict__ ivl_end,
+                                   const int* __restrict__ pair_bounds,
+                                   int64_t P, int* __restrict__ pair_new) {
+    ct_pair_new(prefix, ivl_start, ivl_end, pair_bounds, P, pair_new);
+}
+
 // A group of G = 2^lg lanes per set reads the set's pair_new and
 // univ_of_pair coalesced (none for a set in the cover or outside the rank
 // tier), caps each pair by its universe's need max(len_u - can_uncover,
 // 0) and reduces by shuffles; lane 0 takes the set's candidate
-// (ct_set_candidates).  Blocks of CT_GROUP_THREADS threads.
-__global__ void ct_group_score_kernel(const int* __restrict__ pair_new,
-                                      const int* __restrict__ univ_of_pair,
-                                      const int* __restrict__ set_bounds,
-                                      int64_t S, int lg,
-                                      const int* __restrict__ len_u,
-                                      const int* __restrict__ can_uncover,
-                                      const bool* __restrict__ in_cover,
-                                      const int* __restrict__ rank_idx,
-                                      const int* __restrict__ cur_rank,
-                                      const float* __restrict__ cost,
-                                      float* __restrict__ blk_r,
-                                      int* __restrict__ blk_i,
-                                      int* __restrict__ blk_any) {
+// (ct_set_candidates, whose id is the set's index + id_base).  Blocks of
+// CT_GROUP_THREADS threads along the grid's x axis.
+__device__ __forceinline__ void ct_group_score(
+        const int* __restrict__ pair_new, const int* __restrict__ univ_of_pair,
+        const int* __restrict__ set_bounds, int64_t S, int lg,
+        const int* __restrict__ len_u, const int* __restrict__ can_uncover,
+        const bool* __restrict__ in_cover, const int* __restrict__ rank_idx,
+        const int* __restrict__ cur_rank, const float* __restrict__ cost,
+        float* __restrict__ blk_r, int* __restrict__ blk_i,
+        int* __restrict__ blk_any, int id_base) {
     const int G = 1 << lg;
     const int lane = threadIdx.x & (G - 1);
     const int64_t s = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> lg;
@@ -346,7 +348,25 @@ __global__ void ct_group_score_kernel(const int* __restrict__ pair_new,
     for (int d = G >> 1; d >= 1; d >>= 1)
         sc += __shfl_xor_sync(CT_FULL_MASK, sc, d);
     ct_set_candidates(s < S && lane == 0 ? s : -1, sc, in_cover, rank_idx,
-                      cr, cost, blk_r, blk_i, blk_any);
+                      cr, cost, blk_r, blk_i, blk_any, id_base);
+}
+
+__global__ void ct_group_score_kernel(const int* __restrict__ pair_new,
+                                      const int* __restrict__ univ_of_pair,
+                                      const int* __restrict__ set_bounds,
+                                      int64_t S, int lg,
+                                      const int* __restrict__ len_u,
+                                      const int* __restrict__ can_uncover,
+                                      const bool* __restrict__ in_cover,
+                                      const int* __restrict__ rank_idx,
+                                      const int* __restrict__ cur_rank,
+                                      const float* __restrict__ cost,
+                                      float* __restrict__ blk_r,
+                                      int* __restrict__ blk_i,
+                                      int* __restrict__ blk_any) {
+    ct_group_score(pair_new, univ_of_pair, set_bounds, S, lg, len_u,
+                   can_uncover, in_cover, rank_idx, cur_rank, cost, blk_r,
+                   blk_i, blk_any, 0);
 }
 
 // The recompute at the start of an incremental call (4 launches): the

@@ -1,246 +1,303 @@
 // K18 greedy_sharded: greedy set-cover steps with the sets sharded over
-// the places of a mesh and the coverage state replicated.
+// the places of a mesh and the coverage state replicated, on K13's
+// incremental step (greedy_v1.cu).
 //
 // Replaces catch_tpu/parallel/set_cover.py greedy_step_sharded (:114-181)
 // and, driven until the stop flag, the loop of _solve_sharded_jit
 // (:184-236).  Place d holds the sets [base, base + S) with their pairs
-// and intervals (set_of_pair keeps global set ids, pair_of_ivl is local)
-// and a replica of covered, len_u, order, n_chosen, cur_rank and stop.  A
-// step has four phases, each one entry point for one place:
-//   candidate  the uncovered prefix of the place's replica, the segment
-//              sums of its shard (greedy.cuh's atomics), eligibility and
-//              the float32 ratio, and the shard's first minimum as (ratio,
-//              global set id, any eligible) in slot d of the candidates;
-//              a shard without sets offers (+inf, base);
-//   decide     greedy.cuh's decide step over the n candidates (catch_tpu's
-//              pmin on the ratio, then pmin on the global id): pick, rank
-//              advance, stop, order[n_chosen++] on this replica;
-//   collect    the place that owns the chosen set flags it in its in_cover
-//              and writes the set's intervals and each of its pairs'
-//              (universe, pair_new) to row d of the update buffers; every
-//              other place writes empty rows;
-//   apply      every replica fills the listed intervals into covered and
-//              takes the listed pair_new off len_u (what catch_tpu merges
-//              by a psum of a (U + 1)-long delta; the chosen set's
-//              intervals are few, so only they travel).
-// Between candidate and decide, and between collect and apply, every place
-// needs every other place's slot or row.  Places that share a card share
-// the candidate slots and the update buffers, and their one stream orders
-// the phases.  Places on distinct cards hold their own copies, and the
-// caller copies slot d and row d from place d to the other cards between
-// the phases.  No phase waits for the host, so the caller queues many
-// steps at once.
+// and intervals, and a replica of covered, len_u, order, n_chosen,
+// cur_rank and stop.  Each shard is regrouped set-major once a solve
+// (ops/set_cover.py set_major_index, on local set ids), and each place
+// keeps its pairs' uncovered counts pair_new on the card through a call:
+// catch_tpu's segment sum over each pair's intervals of their uncovered
+// positions, taken from the place's own replica.
 //
-// Integer atomics give the same sums in any order, and the minimum prefers
-// the lower set id on equal ratios, so every replica equals catch_tpu's
-// state after every step at any number of places.
+// Every launch serves all places of one card: a table of GsPlace records
+// in device memory, the place on blockIdx.y (or blockIdx.x where a place
+// is one block).  Place d writes slot d of the candidates and row d of
+// the update rows, in its card's GsCard.  A call is:
+//   recompute, once a call (4 launches): the uncovered prefix of each
+//      replica (greedy.cuh's three-pass scan, a row a place), then a
+//      thread a pair;
+//   then each step, 4 launches, in phases:
+//   offer   greedy.cuh's score pass over the place's pairs (a group of
+//           lanes a set), then one block a place takes its first minimum
+//           as (ratio, global id = base + local, any eligible) into slot
+//           d; a shard without sets offers (+inf, base);
+//   pick    one block a place: greedy.cuh's decide step over the n slots
+//           on its replica (catch_tpu's pmin on the ratio, then on the
+//           global id), then, in the same block, collect: the place that
+//           owns the chosen set flags it in its in_cover and writes row d
+//           from the set's own entries of its regrouping: each tile the
+//           set meets with the set's intervals there, and each of its
+//           pairs' (universe, pair_new); every other place writes an
+//           empty row (the counts, no memset);
+//   apply   on every replica, a block per listed tile ORs the row's
+//           intervals there, marks the positions still uncovered, takes
+//           their prefix in shared memory and covers them; through the
+//           place's own tile index it subtracts the fresh count inside
+//           each of its intervals from that interval's pair_new.  Block
+//           0 also subtracts the row's pair_new from len_u.
+// Between offer and pick, and between pick and apply, every place needs
+// every other place's slot or row.  Places that share a card share its
+// GsCard, and their one stream orders the phases.  Places on distinct
+// cards hold their own GsCard, and the caller copies slot d and row d
+// from place d's card to the other cards between the phases.  No phase
+// waits for the host.
 //
-// Bound on the card: device-memory bandwidth; every place reads its
-// replica of the position axis and its shard every step.
+// The replicas are equal, so every place sees the same fresh positions,
+// and the update keeps each place's pair_new equal to a full recompute,
+// overlapping intervals included (as K13's).  The row's pair_new is the
+// chosen pairs' count before the update, which catch_tpu subtracts from
+// len_u.  Integer atomics give the same sums in any order, and the
+// minimum prefers the lower set id on equal ratios, so every replica
+// equals catch_tpu's state after every step at any number of places.
+// Steps after the stop change nothing but cur_rank.
+//
+// Bound on the card: device-memory bandwidth.  The recompute reads each
+// replica's axis once a call; a step reads each shard's pair_new and
+// univ_of_pair and its set arrays once, and the update only the chosen
+// set's tiles on each replica.  Launch gaps (4 a step a card) are the
+// floor at small sizes.
 #include "greedy.cuh"
 
+#define GS_TILE 256   // positions a tile: ops/set_cover.py _K12_TILE
+
+// One place.  The regrouping's pointers are null for a shard without
+// sets.  All fields are 8 bytes: parallel/set_cover.py writes the table
+// as int64 values in this order.
 struct GsPlace {
     bool* covered;
     int* len_u;
-    const int* can_uncover;
     bool* in_cover;
-    const float* cost;
-    const int* rank_idx;
-    const int* ivl_start;
-    const int* ivl_end;
-    const int* pair_of_ivl;
-    const int* set_of_pair;
-    const int* univ_of_pair;
     int* cur_rank;
     bool* stop;
     int* order;
     int* n_chosen;
+    const int* can_uncover;
+    const float* cost;
+    const int* rank_idx;
+    const int* ivl_start;
+    const int* ivl_end;
+    const int* pair_bounds;
+    const int* set_bounds;
+    const int* univ_of_pair;
+    const int4* ivl_rec;
+    const int* tile_ptr;
+    const int* tile_ivl;
+    const int* set_grp;
+    const int* grp_tile;
+    const int* grp_off;
+    const int* grp_ivl;
     int* prefix;
-    int* tiles;
     int* pair_new;
-    int* score;
     float* blk_r;
     int* blk_i;
     int* blk_any;
     int* dec;
-    int64_t S, M, P, base;
+    int64_t S, P, nb, lg, base, slot;
 };
 
-// The update buffers: row d holds what place d collected.  cnt[2 * d] and
-// cnt[2 * d + 1] count its intervals and pairs; cap_i and cap_p are the
-// row widths (the largest interval and pair counts of one set).
-struct GsUpdate {
+// A card's candidate slots and update rows.  Row d: cnt[3 d .. 3 d + 2]
+// count its tiles, interval entries and pairs; tile[d][g] is tile g's
+// id and its intervals are ivl[d][off[d][g] .. off[d][g + 1]]; the pairs
+// are (univ[d][k], pnew[d][k]).  cap_g, cap_e, cap_p: the most tiles,
+// interval entries and pairs of one set.
+struct GsCard {
+    float* cand_r;
+    int* cand_i;
+    int* cand_any;
     int* cnt;
-    int* ivl_start;
-    int* ivl_end;
+    int* tile;
+    int* off;
+    int2* ivl;
     int* univ;
-    int* pair_new;
-    int64_t cap_i, cap_p;
+    int* pnew;
+    int64_t cap_g, cap_e, cap_p;
 };
-
-__global__ void gs_set_kernel(const int* __restrict__ score, int64_t S,
-                              int base, const bool* __restrict__ in_cover,
-                              const int* __restrict__ rank_idx,
-                              const int* __restrict__ cur_rank,
-                              const float* __restrict__ cost,
-                              float* __restrict__ blk_r,
-                              int* __restrict__ blk_i,
-                              int* __restrict__ blk_any) {
-    const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    ct_set_candidates(s < S ? s : -1, s < S ? score[s] : 0, in_cover,
-                      rank_idx, *cur_rank, cost, blk_r, blk_i, blk_any, base);
-}
-
-// One block: the shard's first (ratio, global id) minimum over its set
-// blocks.
-__global__ void gs_place_kernel(const float* __restrict__ blk_r,
-                                const int* __restrict__ blk_i,
-                                const int* __restrict__ blk_any, int64_t nb,
-                                int base, float* cand_r, int* cand_i,
-                                int* cand_any) {
-    float r = INFINITY;
-    int i = INT_MAX;
-    int any = 0;
-    for (int64_t b = threadIdx.x; b < nb; b += blockDim.x) {
-        if (ct_better(blk_r[b], blk_i[b], r, i)) { r = blk_r[b]; i = blk_i[b]; }
-        any |= blk_any[b];
-    }
-    any = __syncthreads_or(any);
-    ct_block_min(r, i);
-    if (threadIdx.x == 0) {
-        *cand_r = r;
-        *cand_i = nb > 0 ? i : base;
-        *cand_any = any;
-    }
-}
-
-__global__ void gs_collect_kernel(
-        const int* __restrict__ dec, const int* __restrict__ set_of_pair,
-        const int* __restrict__ pair_of_ivl,
-        const int* __restrict__ ivl_start, const int* __restrict__ ivl_end,
-        int64_t M, const int* __restrict__ univ_of_pair,
-        const int* __restrict__ pair_new, int64_t P, int base, int64_t S,
-        bool* __restrict__ in_cover, int* __restrict__ cnt,
-        int* __restrict__ buf_s, int* __restrict__ buf_e,
-        int* __restrict__ buf_u, int* __restrict__ buf_n) {
-    if (!dec[1]) return;
-    const int c = dec[0];
-    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t == 0 && c >= base && c < base + S) in_cover[c - base] = true;
-    if (t < M && set_of_pair[pair_of_ivl[t]] == c) {
-        const int k = atomicAdd(&cnt[0], 1);
-        buf_s[k] = ivl_start[t];
-        buf_e[k] = ivl_end[t];
-    }
-    if (t < P && set_of_pair[t] == c) {
-        const int k = atomicAdd(&cnt[1], 1);
-        buf_u[k] = univ_of_pair[t];
-        buf_n[k] = pair_new[t];
-    }
-}
-
-// blockIdx.y is the row (the place that collected it).
-__global__ void gs_apply_kernel(const int* __restrict__ cnt,
-                                const int* __restrict__ buf_s,
-                                const int* __restrict__ buf_e,
-                                const int* __restrict__ buf_u,
-                                const int* __restrict__ buf_n, int64_t cap_i,
-                                int64_t cap_p, bool* __restrict__ covered,
-                                int* __restrict__ len_u) {
-    const int64_t row = blockIdx.y;
-    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < cnt[2 * row]) {
-        const int end = buf_e[row * cap_i + t];
-        for (int x = buf_s[row * cap_i + t]; x < end; ++x) covered[x] = true;
-    }
-    if (t < cnt[2 * row + 1])
-        atomicSub(&len_u[buf_u[row * cap_p + t]], buf_n[row * cap_p + t]);
-}
 
 namespace {
 
-void gs_candidate(const GsPlace& p, int64_t U, float* cand_r, int* cand_i,
-                  int* cand_any, cudaStream_t st) {
-    cudaMemsetAsync(p.prefix, 0, sizeof(int), st);
-    ct_scan(UncoveredLoad{p.covered}, PrefixStore{p.prefix}, U, p.tiles, st);
-    if (p.P > 0) cudaMemsetAsync(p.pair_new, 0, p.P * sizeof(int), st);
-    if (p.S > 0) cudaMemsetAsync(p.score, 0, p.S * sizeof(int), st);
-    if (p.M > 0)
-        ct_ivl_sums_kernel<<<ct_blocks(p.M, 256), 256, 0, st>>>(
-            p.prefix, p.ivl_start, p.ivl_end, p.pair_of_ivl, p.M, p.pair_new);
-    if (p.P > 0)
-        ct_pair_scores_kernel<<<ct_blocks(p.P, 256), 256, 0, st>>>(
-            p.pair_new, p.set_of_pair, p.univ_of_pair, p.P, p.len_u,
-            p.can_uncover, (int)p.base, p.score);
-    const unsigned nb = p.S > 0 ? ct_blocks(p.S, 256) : 0;
-    if (nb > 0)
-        gs_set_kernel<<<nb, 256, 0, st>>>(
-            p.score, p.S, (int)p.base, p.in_cover, p.rank_idx, p.cur_rank,
-            p.cost, p.blk_r, p.blk_i, p.blk_any);
-    gs_place_kernel<<<1, CT_DECIDE_THREADS, 0, st>>>(
-        p.blk_r, p.blk_i, p.blk_any, nb, (int)p.base, cand_r, cand_i,
-        cand_any);
+// The uncovered indicator of place blockIdx.y's replica, and its
+// inclusive prefix into prefix[i + 1] (prefix[0] = 0 from the first item).
+struct GsUncovered {
+    const GsPlace* places;
+    __device__ int operator()(int64_t i) const {
+        return places[blockIdx.y].covered[i] ? 0 : 1;
+    }
+};
+
+struct GsPrefix {
+    const GsPlace* places;
+    __device__ void operator()(int64_t i, int v) const {
+        int* prefix = places[blockIdx.y].prefix;
+        if (i == 0) prefix[0] = 0;
+        prefix[i + 1] = v;
+    }
+};
+
+__global__ void gs_pair_new_kernel(const GsPlace* __restrict__ places) {
+    const GsPlace& p = places[blockIdx.y];
+    ct_pair_new(p.prefix, p.ivl_start, p.ivl_end, p.pair_bounds, p.P,
+                p.pair_new);
 }
 
-void gs_decide(const GsPlace& p, int n_places, const float* cand_r,
-               const int* cand_i, const int* cand_any, int64_t nU,
-               int n_rank_vals, cudaStream_t st) {
-    ct_decide_kernel<<<1, CT_DECIDE_THREADS, 0, st>>>(
-        cand_r, cand_i, cand_any, n_places, p.len_u, p.can_uncover, nU,
-        n_rank_vals, p.cur_rank, p.stop, nullptr, p.dec, nullptr, nullptr, 0,
-        p.order, p.n_chosen);
+__global__ void gs_score_kernel(const GsPlace* __restrict__ places) {
+    const GsPlace& p = places[blockIdx.y];
+    if (blockIdx.x >= p.nb) return;
+    ct_group_score(p.pair_new, p.univ_of_pair, p.set_bounds, p.S, (int)p.lg,
+                   p.len_u, p.can_uncover, p.in_cover, p.rank_idx,
+                   p.cur_rank, p.cost, p.blk_r, p.blk_i, p.blk_any,
+                   (int)p.base);
 }
 
-void gs_collect(const GsPlace& p, const GsUpdate& u, int64_t row,
-                cudaStream_t st) {
-    cudaMemsetAsync(u.cnt + 2 * row, 0, 2 * sizeof(int), st);
-    const int64_t n = p.M > p.P ? p.M : p.P;
-    if (n > 0)
-        gs_collect_kernel<<<ct_blocks(n, 256), 256, 0, st>>>(
-            p.dec, p.set_of_pair, p.pair_of_ivl, p.ivl_start, p.ivl_end, p.M,
-            p.univ_of_pair, p.pair_new, p.P, (int)p.base, p.S, p.in_cover,
-            u.cnt + 2 * row, u.ivl_start + row * u.cap_i,
-            u.ivl_end + row * u.cap_i, u.univ + row * u.cap_p,
-            u.pair_new + row * u.cap_p);
+// One block a place: its first (ratio, global id) minimum over its score
+// blocks into slot `slot`.
+__global__ void gs_offer_kernel(const GsPlace* __restrict__ places,
+                                GsCard c) {
+    const GsPlace& p = places[blockIdx.x];
+    float r;
+    int i;
+    const int any = ct_min_of_blocks(p.blk_r, p.blk_i, p.blk_any, p.nb, r, i);
+    if (threadIdx.x == 0) {
+        c.cand_r[p.slot] = r;
+        c.cand_i[p.slot] = p.nb > 0 ? i : (int)p.base;
+        c.cand_any[p.slot] = any;
+    }
 }
 
-void gs_apply(const GsPlace& p, const GsUpdate& u, int n_places,
-              cudaStream_t st) {
-    const int64_t n = u.cap_i > u.cap_p ? u.cap_i : u.cap_p;
-    if (n > 0)
-        gs_apply_kernel<<<dim3(ct_blocks(n, 256), n_places), 256, 0, st>>>(
-            u.cnt, u.ivl_start, u.ivl_end, u.univ, u.pair_new, u.cap_i,
-            u.cap_p, p.covered, p.len_u);
+// One block a place: the decide step on its replica, then row `slot`:
+// the chosen set's entries where the place owns it, else empty.
+__global__ void gs_pick_kernel(const GsPlace* __restrict__ places, GsCard c,
+                               int n_places, int64_t nU, int n_rank_vals) {
+    __shared__ int decided[2];
+    const GsPlace& p = places[blockIdx.x];
+    ct_decide(c.cand_r, c.cand_i, c.cand_any, n_places, p.len_u,
+              p.can_uncover, nU, n_rank_vals, p.cur_rank, p.stop, nullptr,
+              p.dec, nullptr, nullptr, 0, p.order, p.n_chosen);
+    if (threadIdx.x == 0) {
+        decided[0] = p.dec[0];
+        decided[1] = p.dec[1];
+    }
+    __syncthreads();
+    const int64_t row = p.slot;
+    int* cnt = c.cnt + 3 * row;
+    const int chosen = decided[0];
+    if (!decided[1] || chosen < p.base || chosen >= p.base + p.S) {
+        if (threadIdx.x == 0) cnt[0] = cnt[1] = cnt[2] = 0;
+        return;
+    }
+    const int s = chosen - (int)p.base;
+    const int g0 = p.set_grp[s], ng = p.set_grp[s + 1] - g0;
+    const int e0 = p.grp_off[g0], ne = p.grp_off[g0 + ng] - e0;
+    const int q0 = p.set_bounds[s], nq = p.set_bounds[s + 1] - q0;
+    int* tile = c.tile + row * c.cap_g;
+    int* off = c.off + row * (c.cap_g + 1);
+    int2* ivl = c.ivl + row * c.cap_e;
+    for (int k = threadIdx.x; k < ng; k += blockDim.x) {
+        tile[k] = p.grp_tile[g0 + k];
+        off[k] = p.grp_off[g0 + k] - e0;
+    }
+    for (int k = threadIdx.x; k < ne; k += blockDim.x) {
+        const int4 r = p.ivl_rec[p.grp_ivl[e0 + k]];
+        ivl[k] = make_int2(r.x, r.y);
+    }
+    for (int k = threadIdx.x; k < nq; k += blockDim.x) {
+        c.univ[row * c.cap_p + k] = p.univ_of_pair[q0 + k];
+        c.pnew[row * c.cap_p + k] = p.pair_new[q0 + k];
+    }
+    if (threadIdx.x == 0) {
+        off[ng] = ne;
+        cnt[0] = ng;
+        cnt[1] = ne;
+        cnt[2] = nq;
+        p.in_cover[s] = true;
+    }
+}
+
+// Blocks of GS_TILE threads: block x takes tile x of the row, on the
+// replica of place blockIdx.y.  The chosen set is shard chosen / S_loc's.
+__global__ void gs_apply_kernel(const GsPlace* __restrict__ places,
+                                GsCard c, int64_t S_loc) {
+    __shared__ int fresh_before[GS_TILE + 1];
+    const GsPlace& p = places[blockIdx.y];
+    if (!p.dec[1]) return;
+    const int64_t row = p.dec[0] / S_loc;
+    const int* cnt = c.cnt + 3 * row;
+    if (blockIdx.x == 0)
+        for (int k = threadIdx.x; k < cnt[2]; k += blockDim.x) {
+            const int n = c.pnew[row * c.cap_p + k];
+            if (n) atomicSub(&p.len_u[c.univ[row * c.cap_p + k]], n);
+        }
+    const int g = blockIdx.x;
+    if (g >= cnt[0]) return;
+    const int t = c.tile[row * c.cap_g + g];
+    const int* off = c.off + row * (c.cap_g + 1);
+    const int2* ivl = c.ivl + row * c.cap_e;
+    const int64_t t0 = (int64_t)t * GS_TILE, t1 = t0 + GS_TILE;
+    const int64_t x = t0 + threadIdx.x;
+    bool chosen = false;
+    for (int k = off[g]; k < off[g + 1]; ++k)
+        chosen |= ivl[k].x <= x && x < ivl[k].y;
+    // a chosen position lies inside an interval, so before U
+    const int fresh = chosen && !p.covered[x];
+    int total;
+    fresh_before[threadIdx.x] = ct_block_excl_scan(fresh, &total);
+    if (threadIdx.x == 0) fresh_before[GS_TILE] = total;
+    __syncthreads();
+    if (total == 0) return;
+    // each thread covers only the position it read
+    if (fresh) p.covered[x] = true;
+    if (!p.tile_ptr) return;
+    for (int k = p.tile_ptr[t] + threadIdx.x; k < p.tile_ptr[t + 1];
+         k += blockDim.x) {
+        const int4 r = p.ivl_rec[p.tile_ivl[k]];
+        const int64_t a = r.x > t0 ? r.x : t0, b = r.y < t1 ? r.y : t1;
+        if (a < b) {
+            const int n = fresh_before[b - t0] - fresh_before[a - t0];
+            if (n) atomicSub(&p.pair_new[r.z], n);
+        }
+    }
 }
 
 }  // namespace
 
-// One phase of one place; the caller makes the place's card current.
-extern "C" int ct_gs_candidate(const GsPlace* p, int64_t U, void* cand_r,
-                               void* cand_i, void* cand_any, int64_t slot,
-                               void* stream) {
-    gs_candidate(*p, U, (float*)cand_r + slot, (int*)cand_i + slot,
-                 (int*)cand_any + slot, ct_stream(stream));
-    return (int)cudaGetLastError();
-}
-
-extern "C" int ct_gs_decide(const GsPlace* p, int n_places,
-                            const void* cand_r, const void* cand_i,
-                            const void* cand_any, int64_t nU,
-                            int n_rank_vals, void* stream) {
-    gs_decide(*p, n_places, (const float*)cand_r, (const int*)cand_i,
-              (const int*)cand_any, nU, n_rank_vals, ct_stream(stream));
-    return (int)cudaGetLastError();
-}
-
-extern "C" int ct_gs_collect(const GsPlace* p, const GsUpdate* u,
-                             int64_t row, void* stream) {
-    gs_collect(*p, *u, row, ct_stream(stream));
-    return (int)cudaGetLastError();
-}
-
-extern "C" int ct_gs_apply(const GsPlace* p, const GsUpdate* u, int n_places,
+// The phases that `stages` selects (greedy.cuh's CT_* bits: RECOMPUTE,
+// SCORE = offer, DECIDE = pick, UPDATE = apply) for the n_loc places of
+// one card, whose table `places` lies on the card; the caller makes the
+// card current.  n_places: the mesh's places (candidate slots and rows);
+// max_nb, max_P: the most score blocks and pairs of a place on the card;
+// tiles: n_loc * ceil(U / CT_SCAN_TILE) ints.
+extern "C" int ct_gs_steps(const void* places, int n_loc, const GsCard* card,
+                           int n_places, int64_t U, int64_t nU,
+                           int n_rank_vals, int64_t S_loc, int64_t max_nb,
+                           int64_t max_P, void* tiles, int stages,
                            void* stream) {
-    gs_apply(*p, *u, n_places, ct_stream(stream));
+    cudaStream_t st = ct_stream(stream);
+    const GsPlace* p = (const GsPlace*)places;
+    const GsCard& c = *card;
+    if (stages & CT_RECOMPUTE) {
+        // with U = 0 every interval is [0, 0) and adds prefix[0] -
+        // prefix[0] = 0
+        ct_scan_rows(GsUncovered{p}, GsPrefix{p}, U, n_loc, (int*)tiles, st);
+        if (max_P > 0)
+            gs_pair_new_kernel<<<dim3(ct_blocks(max_P, 256), n_loc), 256, 0,
+                                 st>>>(p);
+    }
+    if (stages & CT_SCORE) {
+        if (max_nb > 0)
+            gs_score_kernel<<<dim3((unsigned)max_nb, n_loc), CT_GROUP_THREADS,
+                              0, st>>>(p);
+        gs_offer_kernel<<<n_loc, CT_DECIDE_THREADS, 0, st>>>(p, c);
+    }
+    if (stages & CT_DECIDE) {
+        gs_pick_kernel<<<n_loc, CT_DECIDE_THREADS, 0, st>>>(
+            p, c, n_places, nU, n_rank_vals);
+    }
+    if (stages & CT_UPDATE) {
+        const unsigned n_tiles = c.cap_g > 0 ? (unsigned)c.cap_g : 1;
+        gs_apply_kernel<<<dim3(n_tiles, n_loc), GS_TILE, 0, st>>>(p, c,
+                                                                 S_loc);
+    }
     return (int)cudaGetLastError();
 }

@@ -751,19 +751,6 @@ def _step_tensors(state, consts, const_names, n_steps):
     return [t for _, t in named], (U, nU, S, M, P)
 
 
-def _scratch(dev, U, P, S):
-    """The per-dispatch scratch of the sharded greedy kernels
-    (parallel/set_cover.py)."""
-    def ints(n):
-        return torch.empty(max(n, 1), dtype=torch.int32, device=dev)
-    nb = -(-S // 256)
-    return dict(prefix=ints(U + 1), tiles=ints(-(-U // _SCAN_TILE)),
-                pair_new=ints(P), pair_aux=ints(max(P, S)),
-                blk_r=torch.empty(max(nb, 1), dtype=torch.float32,
-                                  device=dev),
-                blk_i=ints(nb), blk_any=ints(nb), dec=ints(2))
-
-
 # ----------------------------------------------------------------------
 # K11 init_covered
 # ----------------------------------------------------------------------
@@ -990,9 +977,9 @@ def k12_index(consts, U):
 
 
 def _step_scratch(dev, U, P, S, max_pairs, n_steps):
-    """The per-call scratch of K12 and K13, with lg (log2 of the lanes a
-    set of the score pass, from the most pairs of a set) and nb (its
-    blocks)."""
+    """The per-call scratch of K12, K13 and a place of K18, with lg (log2
+    of the lanes a set of the score pass, from the most pairs of a set)
+    and nb (its blocks)."""
     lg = min(5, max(0, max_pairs - 1).bit_length())
     nb = -(-(S << lg) // _GROUP_THREADS)
 

@@ -12,14 +12,18 @@ single-device and host solvers' at any number of places.  The place
 that owns the chosen set lists its intervals and its pairs' uncovered
 counts, and every replica applies that list.
 
-The kernel is K18 greedy_sharded (csrc/greedy_sharded.cu), which shares
-its scan, candidate and decide code with K12 and K13 (csrc/greedy.cuh).
-A step is four phases, each one launch sequence per place; the wrapper
-queues a whole dispatch of steps with no host synchronisation.  Places
-of one card share their candidate slots and update rows; between
-distinct cards the wrapper copies each place's slot and row to the
-other cards after the phase that writes them.  Those copies were run
-only with all places on one card (the card tests force them there).
+The kernel is K18 greedy_sharded (csrc/greedy_sharded.cu), K13's
+incremental step on each shard: each shard is regrouped set-major once a
+solve (shard_index), each place keeps its pairs' uncovered counts on the
+card through a call, and a pick updates only the chosen set's tiles.  It
+shares its scan, score pass and decide step with K12 and K13
+(csrc/greedy.cuh).  Each phase is one launch sequence for all places of
+a card; the wrapper queues a whole dispatch of steps with no host
+synchronisation.  Places of one card share their candidate slots and
+update rows; between distinct cards the wrapper copies each place's slot
+and row to the other cards after the phase that writes them.  Those
+copies were run only with all places on one card (the card tests force
+them there).
 
 Left out from catch_tpu: the power-of-two pads, the dummy pair, set and
 universe slots (a shard may hold no set at all; it then offers
@@ -31,6 +35,7 @@ CPU tensors and the kernel for CUDA tensors, counts its launches in
 """
 
 import ctypes
+import logging
 import time
 
 import numpy as np
@@ -54,6 +59,8 @@ _REPLICA_TYPES = dict(covered=torch.bool, len_u=torch.int32,
                       stop=torch.bool)
 _INT32_MAX = np.iinfo(np.int32).max
 
+logger = logging.getLogger(__name__)
+
 
 def partition_instance(inst, n_shards):
     """Partition an instance's sets into contiguous per-shard blocks.
@@ -67,8 +74,7 @@ def partition_instance(inst, n_shards):
     index within the shard; set_of_pair int32[P_d], global set ids;
     univ_of_pair int32[P_d]; cost float32[S_d]; rank_idx int32[S_d];
     and the int `base` = d * S_loc), and the ints S_loc, n_sets,
-    n_universes, u_len, n_rank_vals, max_ivls_per_set and
-    max_pairs_per_set (the widths of the solver's update rows).
+    n_universes, u_len and n_rank_vals.
 
     Replaces catch_tpu/parallel/set_cover.py _partition_instance
     (:47-111), without its pads and dummy slots.
@@ -102,14 +108,9 @@ def partition_instance(inst, n_shards):
                  for k, t in _SHARD_ARRAYS.items()}
         shard["base"] = d * S_loc
         shards.append(shard)
-    pairs_per_set = np.bincount(set_of_pair, minlength=max(S, 1))
-    ivls_per_set = np.bincount(set_of_pair[pair_of_ivl],
-                               minlength=max(S, 1))
     return dict(shards=shards, S_loc=S_loc, n_sets=S,
                 n_universes=int(inst.n_universes), u_len=int(inst.u_len),
-                n_rank_vals=int(inst.n_rank_vals),
-                max_ivls_per_set=int(ivls_per_set.max()),
-                max_pairs_per_set=int(pairs_per_set.max()))
+                n_rank_vals=int(inst.n_rank_vals))
 
 
 def place_partition(part, can_uncover, mesh):
@@ -178,54 +179,84 @@ def _checked(states, part, n_steps):
     return places
 
 
-class _GsPlace(ctypes.Structure):
-    """struct GsPlace of csrc/greedy_sharded.cu."""
-    _POINTERS = ("covered", "len_u", "can_uncover", "in_cover", "cost",
-                 "rank_idx", "ivl_start", "ivl_end", "pair_of_ivl",
-                 "set_of_pair", "univ_of_pair", "cur_rank", "stop", "order",
-                 "n_chosen", "prefix", "tiles", "pair_new", "score", "blk_r",
-                 "blk_i", "blk_any", "dec")
+# struct GsPlace of csrc/greedy_sharded.cu, field by field: each a device
+# pointer (0 for null) or an int64.
+_PLACE_FIELDS = (
+    "covered", "len_u", "in_cover", "cur_rank", "stop", "order", "n_chosen",
+    "can_uncover", "cost", "rank_idx", "ivl_start", "ivl_end", "pair_bounds",
+    "set_bounds", "univ_of_pair", "ivl_rec", "tile_ptr", "tile_ivl",
+    "set_grp", "grp_tile", "grp_off", "grp_ivl", "prefix", "pair_new",
+    "blk_r", "blk_i", "blk_any", "dec", "S", "P", "nb", "lg", "base", "slot")
+# The shard's regrouped arrays in the record (the rest of set_major_index
+# is its tile index and set tiles); can_uncover, cost and rank_idx are
+# the shard's own.
+_REGROUPED = ("ivl_start", "ivl_end", "pair_bounds", "set_bounds",
+              "univ_of_pair", "ivl_rec", "tile_ptr", "tile_ivl", "set_grp",
+              "grp_tile", "grp_off", "grp_ivl")
+# What a place writes for the others: its candidate slot, its update row.
+_SLOT = ("cand_r", "cand_i", "cand_any")
+_ROW = ("cnt", "tile", "off", "ivl", "univ", "pnew")
+
+
+class _GsCard(ctypes.Structure):
+    """struct GsCard of csrc/greedy_sharded.cu."""
+    _POINTERS = _SLOT + _ROW
     _fields_ = ([(k, ctypes.c_void_p) for k in _POINTERS]
-                + [(k, ctypes.c_int64) for k in ("S", "M", "P", "base")])
+                + [(k, ctypes.c_int64) for k in ("cap_g", "cap_e", "cap_p")])
 
 
-class _GsUpdate(ctypes.Structure):
-    """struct GsUpdate of csrc/greedy_sharded.cu."""
-    _POINTERS = ("cnt", "ivl_start", "ivl_end", "univ", "pair_new")
-    _fields_ = ([(k, ctypes.c_void_p) for k in _POINTERS]
-                + [(k, ctypes.c_int64) for k in ("cap_i", "cap_p")])
+def shard_index(shard, U):
+    """K18's regrouping of a placed shard over U positions:
+    set_cover.set_major_index of its arrays on local set ids
+    (set_of_pair - base), with max_pieces, the most interval entries of
+    one set over its tiles.  Built at the first call and kept in the
+    shard under "_k18_index" (built again if ivl_start was replaced);
+    None for a shard without sets, which builds nothing."""
+    S = shard["cost"].numel()
+    if S == 0:
+        return None
+
+    def build():
+        idx = sc.set_major_index(
+            shard["ivl_start"], shard["ivl_end"], shard["pair_of_ivl"],
+            shard["set_of_pair"] - shard["base"], shard["univ_of_pair"], S, U)
+        idx["max_pieces"] = int(torch.diff(
+            idx["grp_off"][idx["set_grp"].long()]).max())
+        return idx
+
+    return sc._kept_index(shard, "_k18_index", U, build)
 
 
-def _place_struct(state, shard, U):
-    """(struct, tensors it points at) of one place, scratch included."""
-    S, P = shard["cost"].numel(), shard["set_of_pair"].numel()
-    w = sc._scratch(state["covered"].device, U, P, S)
-    fields = dict(state, **shard, prefix=w["prefix"], tiles=w["tiles"],
-                  pair_new=w["pair_new"], score=w["pair_aux"],
+def _place_record(state, shard, idx, w, slot):
+    """The int64 fields of place `slot`'s GsPlace."""
+    fields = dict(state, can_uncover=shard["can_uncover"],
+                  cost=shard["cost"], rank_idx=shard["rank_idx"],
+                  prefix=w["prefix"], pair_new=w["pair_new"],
                   blk_r=w["blk_r"], blk_i=w["blk_i"], blk_any=w["blk_any"],
                   dec=w["dec"])
-    struct = _GsPlace(**{k: fields[k].data_ptr()
-                         for k in _GsPlace._POINTERS},
-                      S=S, M=shard["ivl_start"].numel(), P=P,
-                      base=shard["base"])
-    return struct, fields
+    if idx is not None:
+        fields.update({k: idx[k] for k in _REGROUPED})
+    fields.update(S=shard["cost"].numel(), P=shard["set_of_pair"].numel(),
+                  nb=w["nb"], lg=w["lg"], base=shard["base"], slot=slot)
+    values = [fields.get(k, 0) for k in _PLACE_FIELDS]
+    return [v if isinstance(v, int) else v.data_ptr() for v in values]
 
 
-def _update_buffers(part, n, device):
-    """(struct, tensors) of the update rows of n places on `device`, and
-    the candidate slots (ratio, id, any)."""
-    cap_i, cap_p = part["max_ivls_per_set"], part["max_pairs_per_set"]
+def _card_buffers(n, caps, device):
+    """(struct, tensors) of one card's candidate slots and update rows
+    for a mesh of n places; caps: the most tiles, interval entries and
+    pairs of one set (at least 1 each)."""
+    cap_g, cap_e, cap_p = caps
 
     def ints(*shape):
         return torch.empty(shape, dtype=torch.int32, device=device)
 
-    t = dict(cnt=ints(n, 2), ivl_start=ints(n, max(cap_i, 1)),
-             ivl_end=ints(n, max(cap_i, 1)), univ=ints(n, max(cap_p, 1)),
-             pair_new=ints(n, max(cap_p, 1)),
-             cand_r=torch.empty(n, dtype=torch.float32, device=device),
-             cand_i=ints(n), cand_any=ints(n))
-    struct = _GsUpdate(**{k: t[k].data_ptr() for k in _GsUpdate._POINTERS},
-                       cap_i=max(cap_i, 1), cap_p=max(cap_p, 1))
+    t = dict(cand_r=torch.empty(n, dtype=torch.float32, device=device),
+             cand_i=ints(n), cand_any=ints(n), cnt=ints(n, 3),
+             tile=ints(n, cap_g), off=ints(n, cap_g + 1),
+             ivl=ints(n, cap_e, 2), univ=ints(n, cap_p), pnew=ints(n, cap_p))
+    struct = _GsCard(**{k: t[k].data_ptr() for k in _GsCard._POINTERS},
+                     cap_g=cap_g, cap_e=cap_e, cap_p=cap_p)
     return struct, t
 
 
@@ -244,11 +275,15 @@ def greedy_steps_sharded(states, part, n_steps):
     every tensor of place d lies on that place.  part: the placed
     partition (place_partition).  Returns states.  Steps after the stop
     run in full and change nothing but cur_rank.  No step waits for the
-    host.
+    host.  On the card, the first call also keeps each shard regrouped
+    in the shard (shard_index); past set_cover._K12_PIECE_LIMIT pieces
+    that raises ValueError before any launch.
 
     Replaces catch_tpu/parallel/set_cover.py greedy_step_sharded
     (:114-181) and the loop of _solve_sharded_jit (:184-236); the kernel
-    is csrc/greedy_sharded.cu.
+    is csrc/greedy_sharded.cu (K13's incremental step on each shard: each
+    place's pair counts recomputed once a call from its replica, then 4
+    launches a step a card whatever the number of places on it).
     """
     places = _checked(states, part, n_steps)
     if places[0].type == "cpu":
@@ -258,25 +293,46 @@ def greedy_steps_sharded(states, part, n_steps):
     if any(p.type != "cuda" for p in places):
         raise ValueError(f"unsupported places {places}")
     n = len(places)
-    U, nU = part["u_len"], part["n_universes"]
-    n_rank_vals = int(part["n_rank_vals"])
+    U = part["u_len"]
+    shards = part["shards"]
+    idxs = [shard_index(shard, U) for shard in shards]
+    caps = [max([1] + [i[k] for i in idxs if i is not None])
+            for k in ("max_groups", "max_pieces", "max_pairs")]
     lib = _build.library()
-    # the structs hold raw pointers: `alive` keeps the scratch they point
-    # at until every launch is queued
-    structs, alive = [], []
-    for state, shard in zip(states, part["shards"]):
-        struct, tensors = _place_struct(state, shard, U)
-        structs.append(ctypes.byref(struct))
-        alive.append((struct, tensors))
-    # One set of candidate slots and update rows per card.  Place d writes
-    # slot d and row d of its card's set; between the phases they are
-    # copied to the other cards' sets (torch's copies order the two
-    # cards' streams).  Places of one card need no copy: their stream
-    # orders the writes before the reads.
+    # One GsCard per card.  Place d writes slot d and row d of its card's;
+    # between the phases they are copied to the other cards' (torch's
+    # copies order the two cards' streams).  Places of one card need no
+    # copy: their stream orders the writes before the reads.
     card_of = _cards(places)
-    bufs = [_update_buffers(part, n, places[card_of.index(c)])
-            for c in range(max(card_of) + 1)]
-    streams = [_build.stream_of(bufs[c][1]["cnt"]) for c in card_of]
+    n_cards = max(card_of) + 1
+    bufs = [_card_buffers(n, caps, places[card_of.index(c)])
+            for c in range(n_cards)]
+    # `calls` holds raw pointers: `alive` keeps the tensors they point at
+    # until every launch is queued
+    calls, alive = [], []
+    for c in range(n_cards):
+        dev = places[card_of.index(c)]
+        mine = [d for d in range(n) if card_of[d] == c]
+        records, max_nb, max_P = [], 0, 0
+        for d in mine:
+            shard, idx = shards[d], idxs[d]
+            S, P = shard["cost"].numel(), shard["set_of_pair"].numel()
+            w = sc._step_scratch(dev, U, P, S,
+                                 idx["max_pairs"] if idx else 0, 1)
+            records.append(_place_record(states[d], shard, idx, w, d))
+            max_nb, max_P = max(max_nb, w["nb"]), max(max_P, P)
+            alive.append(w)
+        with torch.cuda.device(dev):
+            table = torch.tensor(records, dtype=torch.int64).pin_memory().to(
+                dev, non_blocking=True)
+            tiles = torch.empty(max(1, len(mine) * -(-U // sc._SCAN_TILE)),
+                                dtype=torch.int32, device=dev)
+        alive.append((table, tiles))
+        calls.append((dev, (_build.ptr(table), len(mine),
+                            ctypes.byref(bufs[c][0]), n, U,
+                            part["n_universes"], int(part["n_rank_vals"]),
+                            part["S_loc"], max_nb, max_P,
+                            _build.ptr(tiles)), _build.stream_of(tiles)))
 
     def share(names):
         for d in range(n):
@@ -285,26 +341,23 @@ def greedy_steps_sharded(states, part, n_steps):
                     for k in names:
                         t[k][d].copy_(bufs[card_of[d]][1][k][d])
 
-    def each(call, what):
-        for d in range(n):
-            upd, t = bufs[card_of[d]]
-            with torch.cuda.device(places[d]):
-                _build.check(call(d, structs[d], upd, t, streams[d]), what)
+    def run(stages):
+        for dev, args, stream in calls:
+            with torch.cuda.device(dev):
+                _build.check(lib.ct_gs_steps(*args, stages, stream),
+                             "greedy_sharded")
 
+    st = sc._STAGES
+    run(st["recompute"])
+    # with one card there is nothing to copy between the phases
+    phases = ([(st["score"] | st["decide"] | st["update"], ())]
+              if n_cards == 1 else
+              [(st["score"], _SLOT), (st["decide"], _ROW),
+               (st["update"], ())])
     for _ in range(n_steps):
-        each(lambda d, p, upd, t, st: lib.ct_gs_candidate(
-            p, U, _build.ptr(t["cand_r"]), _build.ptr(t["cand_i"]),
-            _build.ptr(t["cand_any"]), d, st), "greedy_sharded candidate")
-        share(("cand_r", "cand_i", "cand_any"))
-        each(lambda d, p, upd, t, st: lib.ct_gs_decide(
-            p, n, _build.ptr(t["cand_r"]), _build.ptr(t["cand_i"]),
-            _build.ptr(t["cand_any"]), nU, n_rank_vals, st),
-            "greedy_sharded decide")
-        each(lambda d, p, upd, t, st: lib.ct_gs_collect(
-            p, ctypes.byref(upd), d, st), "greedy_sharded collect")
-        share(("cnt", "ivl_start", "ivl_end", "univ", "pair_new"))
-        each(lambda d, p, upd, t, st: lib.ct_gs_apply(
-            p, ctypes.byref(upd), n, st), "greedy_sharded apply")
+        for stages, names in phases:
+            run(stages)
+            share(names)
     greedy_steps_sharded.launches += 1
     return states
 
@@ -400,6 +453,22 @@ def _greedy_steps_sharded_plain(states, part, n_steps):
 si.KERNELS.update(greedy_sharded=greedy_steps_sharded)
 
 
+def _k18_fits(part):
+    """Whether every shard's regrouping (shard_index) of the host
+    partition `part` holds fewer than set_cover._K12_PIECE_LIMIT pieces;
+    where one would not, logs the warning of the host route, which the
+    caller then takes before any launch."""
+    for shard in part["shards"]:
+        n = int(sc._k12_pieces(torch.from_numpy(shard["ivl_start"]),
+                               torch.from_numpy(shard["ivl_end"])).sum(
+            dtype=torch.int64))
+        if n >= sc._K12_PIECE_LIMIT:
+            logger.warning("K18's overlap index exceeds int32; falling back "
+                           "to the host solver")
+            return False
+    return True
+
+
 def solve_instance_sharded(inst, mesh=None, n_devices=None, device=None):
     """Solve a SetCoverInstance on a mesh of places.
 
@@ -420,6 +489,12 @@ def solve_instance_sharded(inst, mesh=None, n_devices=None, device=None):
     time of the partition and its placement, and of the steps, as the
     phases solve_sharded:partition and solve_sharded:steps.
 
+    Where any shard's regrouping would hold set_cover._K12_PIECE_LIMIT
+    pieces or more (_k18_fits, counted on the host on any device), the
+    host lazy solver runs instead, with a warning and before any launch:
+    catch_tpu's sharded solver builds no index and solves such an
+    instance; the picks are the same.
+
     Replaces catch_tpu/parallel/set_cover.py solve_instance_sharded
     (:239-270).
     """
@@ -430,8 +505,10 @@ def solve_instance_sharded(inst, mesh=None, n_devices=None, device=None):
     if mesh is None:
         mesh = make_mesh(n_devices, "cuda" if device is None else device)
     t0 = time.time()
-    part = place_partition(partition_instance(inst, mesh.size),
-                           inst.can_uncover, mesh)
+    part = partition_instance(inst, mesh.size)
+    if not _k18_fits(part):
+        return sc._solve_host_lazy(inst)
+    part = place_partition(part, inst.can_uncover, mesh)
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(

@@ -128,7 +128,10 @@ Phases (any failure exits non-zero and prints no result line):
      phase 17's scan hand to the lead, against its twin and against one
      torch.unique of the packed keys (torch.unique over the (pair, 2)
      rows and its step split printed beside); CUDA-event medians, min
-     and max.
+     and max.  greedy_sharded's bound is the smaller of a full recompute
+     every step on every place and the incremental design's own bytes
+     (k18_work), and its launches are counted by torch.profiler: at most
+     4 a step at 4 places on the one card (fails above that).
 
  21. ebola175 m2 as in phase 5 with the scan's block constants
      (scan_instance._BLOCK_PAIR_KEYS, _BLOCK_POSITIONS) patched to 2^20:
@@ -1706,13 +1709,59 @@ def incremental_work(name, what, U, S, nU, d, chosens, picks, full_step):
     incr = (U + 4 * (U + 1) + 8 * M + 8 * P + 4
             + n_steps * (8 * P + 13 * S + 8 * nU) + 2 * chosen_pos,
             U + M + P + n_steps * (P + S) + chosen_pos)
-    print(f"{name} work ({what}, {n_steps} steps, {int(picks.sum())} "
-          f"picks over {chosen_pos} chosen positions): a full recompute "
-          f"every step {full[0]} bytes, {full[1]} operations (bound "
+    return smaller_work(name, what, n_steps, int(picks.sum()), chosen_pos,
+                        full, incr)
+
+
+def smaller_work(name, what, n_steps, n_picks, chosen_pos, full, incr):
+    """Prints both works of a greedy dispatch, (a) a full recompute
+    every step and (b) the incremental design's own, with their bounds;
+    returns the one of the smaller bound."""
+    print(f"{name} work ({what}, {n_steps} steps, {n_picks} picks over "
+          f"{chosen_pos} chosen positions): a full recompute every step "
+          f"{full[0]} bytes, {full[1]} operations (bound "
           f"{bound(full)[0]:.4f} ms); the incremental step's own "
           f"{incr[0]} bytes, {incr[1]} operations (bound "
           f"{bound(incr)[0]:.4f} ms); the bound is the smaller", flush=True)
     return min(full, incr, key=lambda w: bound(w)[0])
+
+
+def k18_work(torch, psc, what, inst, part, states0, n_steps):
+    """The work of one K18 dispatch of n_steps from states0 at the
+    places of `part` (smaller_work): (a) a full recompute every step on
+    every place, the old bound, and (b) the incremental design's own,
+    summed over the places with each replicated part counted once a
+    place: each place's recompute once (its replica's axis, its
+    intervals and pairs), each step's score pass over every shard's
+    pairs and sets and each replica's universe arrays, and each pick's
+    chosen positions read and written on every replica.  The picks are
+    the twin's on a copy of states0."""
+    import numpy as np
+
+    states = psc._greedy_steps_sharded_plain(
+        [{k: v.clone() for k, v in s.items()} for s in states0], part,
+        n_steps)
+    order = states[0]["order"][:int(states[0]["n_chosen"])].cpu().numpy()
+    set_of_ivl = np.asarray(inst.set_of_pair)[np.asarray(inst.pair_of_ivl)]
+    by_set = np.argsort(set_of_ivl, kind="stable")
+    bounds = np.searchsorted(set_of_ivl[by_set], np.arange(inst.n_sets + 1))
+    s = np.asarray(inst.ivl_start, dtype=np.int64)[by_set]
+    e = np.asarray(inst.ivl_end, dtype=np.int64)[by_set]
+    chosen_pos = sum(union_positions(s[bounds[c]:bounds[c + 1]],
+                                     e[bounds[c]:bounds[c + 1]])
+                     for c in order.tolist())
+    U, nU, n = inst.u_len, inst.n_universes, len(part["shards"])
+    shapes = [(sh["ivl_start"].numel(), sh["set_of_pair"].numel(),
+               sh["cost"].numel()) for sh in part["shards"]]
+    full = [step_work(U, M, P, S, nU, 12, 8) for M, P, S in shapes]
+    full = (n_steps * sum(w[0] for w in full),
+            n_steps * sum(w[1] for w in full))
+    M, P, S = (sum(x) for x in zip(*shapes))
+    incr = (n * (U + 4 * (U + 1) + 4) + 8 * M + 8 * P
+            + n_steps * (8 * P + 13 * S + 8 * nU * n) + 2 * n * chosen_pos,
+            n * U + M + P + n_steps * (P + S) + n * chosen_pos)
+    return smaller_work("greedy_sharded", f"{what}, {n} places", n_steps,
+                        len(order), chosen_pos, full, incr)
 
 
 def k12_work(torch, sct, what, dev, state0, n_steps):
@@ -2064,18 +2113,24 @@ def check_mesh_kernels(torch, device, instances, span_inputs):
         print(f"greedy_sharded shapes ({name}): {n} places, "
               f"{inst.u_len} positions and {inst.n_universes} universes "
               f"replicated; (intervals, pairs, sets) per place {shapes}; "
-              f"update rows of {part['max_ivls_per_set']} intervals and "
-              f"{part['max_pairs_per_set']} pairs; {n_steps} steps",
-              flush=True)
-        # every place reads its replica of the axis and its shard a step
-        work = [step_work(inst.u_len, M, P, S, inst.n_universes, 12, 8)
-                for M, P, S in shapes]
+              f"{n_steps} steps", flush=True)
+        work = k18_work(torch, psc, name, inst, part, states0, n_steps)
         rows = compare(torch, [
             ("greedy_sharded", steps, psc._greedy_steps_sharded_plain,
-             psc.greedy_steps_sharded, 5,
-             (n_steps * sum(w[0] for w in work),
-              n_steps * sum(w[1] for w in work)))])
-        del part, states0
+             psc.greedy_steps_sharded, 5, work)])
+        # the regrouping is kept in the shards by now: the count holds
+        # the recompute and the steps alone
+        states = [{k: v.clone() for k, v in s.items()} for s in states0]
+        counts = device_launches(torch, lambda: psc.greedy_steps_sharded(
+            states, part, n_steps))
+        per_step = sum(c for c in counts.values() if c >= n_steps) / n_steps
+        print(f"greedy_sharded launches in one {n_steps}-step dispatch at "
+              f"{n} places on one card ({name}): {counts}; {per_step:g} a "
+              f"step", flush=True)
+        if per_step > 4:
+            fail(f"greedy_sharded makes {per_step:g} launches a step, not "
+                 "at most 4")
+        del part, states0, states
 
     def put(x):
         return torch.from_numpy(x).to(device)

@@ -22,7 +22,9 @@ pairs than a block, sets with no pairs, intervals across many tiles of
 its overlap index, position axes at the scan's tile edges and a stop
 mid-dispatch; for greedy_v1, the same shapes, pairs and intervals in
 random order, intervals that overlap within a pair and a set, and its
-regrouping rebuilt.  Every comparison is exact.
+regrouping rebuilt; for greedy_sharded, the same instances at 1 to 8
+places with empty shards, every place counted as a card of its own, its
+launches a step and its piece-limit route.  Every comparison is exact.
 """
 
 import numpy as np
@@ -1748,6 +1750,103 @@ def test_greedy_sharded_buffers_per_card_equal_shared(places8, monkeypatch,
     got = psc.greedy_steps_sharded([_clone(s) for s in states0], part, 40)
     torch.cuda.synchronize()
     _states_equal(got, want)
+
+
+@pytest.mark.parametrize("per_card", [False, True],
+                         ids=["shared", "per_card"])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["shuffled", "overlap1", "overlap2",
+                                  "ties"])
+def test_greedy_sharded_incremental_equals_twin(places8, monkeypatch, case,
+                                                n, per_card):
+    """K18's incremental step on instances whose pairs and intervals are
+    in any order and whose intervals overlap, and with empty shards
+    ('ties' and the overlapping ones at 8 places): a 3-step dispatch,
+    then a 64-step one from its state (the pair counts recomputed from a
+    replica mid-solve), each equal to the twin, every place's state
+    included and all replicas equal; with per_card, every place counted
+    as a card of its own, so each phase's slot and row are copied."""
+    from catch_tpu_torch.parallel import set_cover as psc
+
+    inst = _v1_instance(case)
+    part, states0 = _sharded_setup(inst, n, places8)
+    if per_card:
+        monkeypatch.setattr(psc, "_cards", lambda places: list(range(n)))
+    got = [_clone(s) for s in states0]
+    want = [_clone(s) for s in states0]
+    for n_steps in (3, 64):
+        psc.greedy_steps_sharded(got, part, n_steps)
+        torch.cuda.synchronize()
+        psc._greedy_steps_sharded_plain(want, part, n_steps)
+        _states_equal(got, want)
+    assert bool(got[0]["stop"]) and int(got[0]["n_chosen"]) > 0
+    empty = sum(s["cost"].numel() == 0 for s in part["shards"])
+    assert (empty > 0) == (n == 8 and case != "shuffled")
+    for shard in part["shards"]:
+        assert ("_k18_index" in shard) == (shard["cost"].numel() > 0)
+
+
+def test_greedy_sharded_launches_a_step(places8):
+    """torch.profiler's count of one 64-step dispatch at 4 places on one
+    card: the recompute's 4 kernels once, then 4 a step, and one copy of
+    the place table (after 256 one-element adds, against the records a
+    late capture can lose)."""
+    from catch_tpu_torch.parallel import set_cover as psc
+
+    inst = _v1_instance("random")
+    part, states0 = _sharded_setup(inst, 4, places8)
+    psc.greedy_steps_sharded([_clone(s) for s in states0], part, 1)
+    states = [_clone(s) for s in states0]
+    w = torch.zeros(1, device=places8)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(256):
+            w.add_(1)
+        torch.cuda.synchronize()
+        psc.greedy_steps_sharded(states, part, 64)
+        torch.cuda.synchronize()
+    counts = {ev.key: ev.count for ev in prof.key_averages()
+              if "at::native" not in ev.key
+              and (getattr(ev, "device_time_total", None)
+                   or getattr(ev, "cuda_time_total", 0))}
+    per_step = sum(c for c in counts.values() if c >= 64)
+    assert per_step == 4 * 64, counts
+    assert sum(counts.values()) - per_step == 4 + 1, counts
+
+
+def test_greedy_sharded_piece_limit_route(places8, monkeypatch, caplog):
+    """With the piece limit at the largest shard's count, the sharded
+    solver takes the host lazy solver with a warning and launches no
+    K18 step; greedy_steps_sharded on a new partition raises before any
+    launch.  With the limit one above, K18 runs, with the same picks.
+    (The host lazy solver takes a set's intervals as build_instance
+    groups them, so the instance here is build_instance's.)"""
+    from catch_tpu_torch.ops import set_cover as sct
+    from catch_tpu_torch.parallel import make_mesh, solve_instance_sharded
+    from catch_tpu_torch.parallel import set_cover as psc
+
+    inst = _v1_instance("random")
+    want = sct.solve_instance(inst)
+    mesh = make_mesh(4, places8)
+    part = psc.partition_instance(inst, 4)
+    most = max(int(sct._k12_pieces(torch.from_numpy(s["ivl_start"]),
+                                   torch.from_numpy(s["ivl_end"])).sum())
+               for s in part["shards"])
+    for limit, host in ((most, True), (most + 1, False)):
+        monkeypatch.setattr(sct, "_K12_PIECE_LIMIT", limit)
+        caplog.clear()
+        caplog.set_level("WARNING")
+        n = psc.greedy_steps_sharded.launches
+        assert np.array_equal(solve_instance_sharded(inst, mesh=mesh), want)
+        assert ("K18's overlap index exceeds int32" in caplog.text) == host
+        assert (psc.greedy_steps_sharded.launches == n) == host
+    monkeypatch.setattr(sct, "_K12_PIECE_LIMIT", most)
+    placed, states0 = _sharded_setup(inst, 4, places8)
+    n = psc.greedy_steps_sharded.launches
+    with pytest.raises(ValueError, match="int32"):
+        psc.greedy_steps_sharded(states0, placed, 4)
+    assert psc.greedy_steps_sharded.launches == n
 
 
 @pytest.mark.parametrize("case,n", [("random", 1), ("random", 4),
