@@ -12,9 +12,11 @@ the same 'basic' and 'large' defaults.  `--device` (default `cuda`)
 says where the kernels run; a missing CUDA device is an error, never a
 quiet switch to the CPU.  `--num-devices` spreads the scans over a mesh
 of that many devices; a mesh that cannot be built is an error too.  The
-two NCBI flags are refused (they need the network), and so is a mesh
-across processes (CATCH_TPU_COORDINATOR or CATCH_TPU_MULTIHOST in the
-environment: ROADMAP queue 1, item 10b).
+two NCBI flags are refused (they need the network).  With
+CATCH_TPU_COORDINATOR or CATCH_TPU_MULTIHOST in the environment the
+process joins a process group first (parallel/distributed.py), and the
+mesh spans every rank's devices, `--num-devices` counting them all;
+every rank writes its own output, as catch_tpu's does.
 
 Run as ``python -m catch_tpu_torch.cli.design``, or with the 'large'
 defaults as ``python -m catch_tpu_torch.cli.design_large``.
@@ -38,6 +40,7 @@ from catch_tpu_torch.filters.near_duplicate import (
 from catch_tpu_torch.filters.polya import PolyAFilter
 from catch_tpu_torch.filters.reverse_complement import ReverseComplementFilter
 from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
+from catch_tpu_torch.parallel import distributed
 from catch_tpu_torch.parallel import mesh as device_mesh
 from catch_tpu_torch.utils import log, seq_io, version
 
@@ -61,6 +64,7 @@ def main(args):
     run statistics)."""
     log.configure_logging(args.log_level)
     logger = logging.getLogger(__name__)
+    distributed.maybe_initialize()
     device = resolve_device(args.device)
 
     if args.args_type == "large":
@@ -245,15 +249,10 @@ def main(args):
             args.max_num_processes)
 
     # Device mesh: spread the scans over the visible devices of
-    # --device's type when there is more than one, as catch_tpu does.
-    for var in ("CATCH_TPU_COORDINATOR", "CATCH_TPU_MULTIHOST"):
-        if os.environ.get(var):
-            raise NotImplementedError(
-                f"{var} is set, but a mesh across processes is not "
-                "supported by catch_tpu_torch yet (ROADMAP queue 1, item "
-                "10b)")
+    # --device's type when there is more than one, as catch_tpu does;
+    # with a process group, every rank's devices.
     mesh = None
-    n_dev = len(device_mesh.visible_places(device))
+    n_dev = device_mesh.place_count(device)
     limit = args.num_devices if args.num_devices else n_dev
     if args.max_num_processes is not None:
         limit = min(limit, args.max_num_processes)
@@ -521,7 +520,8 @@ def init_and_parse_args(argv=None, args_type="basic"):
     parser.add_argument("--num-devices", type=int,
         help=("(Optional) Spread the scans over a mesh of at most this "
               "many devices, --device first (default: all that are "
-              "visible; also capped by --max-num-processes)"))
+              "visible, on every rank of a process group; also capped "
+              "by --max-num-processes)"))
     parser.add_argument("--kmer-probe-map-k", type=int,
         help=("(Optional) Seed k-mer length for mapping candidate "
               "probes to target sequences (pigeonhole when possible, "

@@ -24,7 +24,8 @@ model alone.
 
 With `mesh` (a parallel.mesh.Mesh led by `device`), every searcher the
 filter builds gets it: the design scan splits its hashing, lookup and
-verification over the places, and the span scan its verification.  As
+verification over the places, and the span scan its verification (on a
+mesh across processes, over every rank's places, exchanging the spans).  As
 in catch_tpu, the filter itself never reaches the sharded solver: the
 host route solves on the host, and CATCH_TPU_SOLVE=device solves on the
 lead whatever the mesh.  The caller still holds one lock around the
@@ -68,7 +69,11 @@ class SetCoverFilter(BaseFilter):
         # filter is only safe to run one group at a time when
         # identification is off.  (Avoided-genome ranks scan only the
         # group's own candidates against external FASTAs: group-local.)
-        return not self.identify
+        # On a mesh across processes the span scans exchange between
+        # the ranks, which must meet them in one order: the groups then
+        # go one after another, in order, on every rank.
+        spans_ranks = self.mesh is not None and self.mesh.spans_ranks
+        return not self.identify and not spans_ranks
 
     def __init__(self, mismatches, lcf_thres, island_of_exact_match=0,
                  mismatches_tolerant=None, lcf_thres_tolerant=None,

@@ -74,7 +74,9 @@ subranges and candidate chunks (catch_tpu/ops/scan_instance.py
 :887-915, :980-1001, :1050-1057); the lead deduplicates the places'
 pairs once more (dedup_pairs: a probe-bucketed dedup), and the
 merges and everything after them run on the lead; the result is the
-same at every mesh size.
+same at every mesh size.  A mesh across processes splits the stages
+over each rank's own places only: every rank builds the whole instance
+and nothing crosses ranks (scan_places).
 
 Every kernel wrapper runs its plain-PyTorch twin (same module, name
 suffixed _plain) for CPU tensors and its kernel for CUDA tensors, and
@@ -1169,16 +1171,18 @@ def scan_to_boundary_instance(searcher, sequences, seq_univ, chrom_off,
 
 
 def scan_places(searcher, device):
-    """The places a scan of `searcher` on `device` runs on: the places
-    of the searcher's mesh when it has more than one, led by `device`,
-    else `device` alone."""
+    """The places a scan of `searcher` on `device` runs on: this rank's
+    places of the searcher's mesh when it has more than one, led by
+    `device`, else `device` alone.  A mesh across processes gives each
+    rank its own places (catch_tpu/ops/scan_instance.py:895-897), so
+    every rank scans the whole instance and no pair crosses ranks."""
     mesh = getattr(searcher, "mesh", None)
     if mesh is None or mesh.size <= 1:
         return (device,)
     if mesh.lead != device:
         raise ValueError(f"the mesh is led by {mesh.lead}, the scan runs on "
                          f"{device}")
-    return mesh.places
+    return mesh.local_places
 
 
 def split_range(n, parts):
@@ -1410,7 +1414,7 @@ def _mark(searcher, device, key, t0, prefix="scan"):
     mesh have finished the phase's work."""
     mesh = getattr(searcher, "mesh", None)
     now = _mark_places(
-        (device, *(mesh.places if mesh is not None else ())),
+        (device, *(mesh.local_places if mesh is not None else ())),
         f"{prefix}:{key}", t0)
     phases = searcher.stats.setdefault("phase_seconds", {})
     phases[key] = phases.get(key, 0.0) + now - t0

@@ -37,7 +37,9 @@ CATCH_TPU_JOIN=host mirror.  There is no fallback: a failing scan raises.
 With a mesh of more than one place on the searcher, step 5 runs as
 verify_spans_sharded: a contiguous block of the kept pairs per place,
 each against that place's replica of the corpus and the probe rows
-(catch_tpu's _verify_chunk_sharded); steps 1 to 4 run on the lead.
+(catch_tpu's _verify_chunk_sharded); steps 1 to 4 run on the lead.  On
+a mesh across processes every rank runs steps 1 to 4, verifies its own
+places' blocks, and the ranks exchange the spans.
 
 Every kernel wrapper runs its plain-PyTorch twin (same module, name
 suffixed _plain) for CPU tensors and its kernel for CUDA tensors, and
@@ -361,18 +363,26 @@ verify_spans.launches = 0
 
 
 def verify_spans_sharded(replicas, pg, start, poff0, ov, thres, n_seq, *, K,
-                         k_seed, seed_req, fast_ok):
+                         k_seed, seed_req, fast_ok, mesh=None):
     """verify_spans over the places of a mesh.
 
-    replicas: one (mega, codes) pair per place, each on its place; the
-    six candidate tensors lie on the first place (the lead).  The
-    candidates are cut into contiguous blocks, one per place; place d
-    verifies its block against its replica, counting and then emitting
-    into its own buffers, and the buffers are joined on the lead in
-    block order, which is verify_spans' order.  A place whose block is
-    empty launches nothing.
+    replicas: one (mega, codes) pair per place of this process, each on
+    its place; the six candidate tensors lie on the first of them (the
+    lead).  The candidates are cut into contiguous blocks, one per place
+    of the mesh; place d verifies its block against its replica,
+    counting and then emitting into its own buffers, and the buffers
+    are joined on the lead in block order, which is verify_spans'
+    order.  A place whose block is empty launches nothing.
 
-    Returns (p, start, end) int64 on the lead, equal to verify_spans'.
+    mesh: the parallel.mesh.Mesh of the places, needed where it spans
+    ranks (its local places are the replicas' places, in order): each
+    rank then verifies its own places' blocks, and the ranks exchange
+    their spans, the counts first, then the spans padded to the largest
+    count (parallel/distributed.all_gather_rows), joined in rank order,
+    which is block order.
+
+    Returns (p, start, end) int64 on the lead, equal to verify_spans',
+    on every rank.
 
     Replaces catch_tpu/ops/scan_sparse.py _verify_chunk_sharded
     (:157-189), without its fixed block and output shapes; the kernels
@@ -383,9 +393,14 @@ def verify_spans_sharded(replicas, pg, start, poff0, ov, thres, n_seq, *, K,
     lead = pg.device
     if not replicas or replicas[0][0].device != lead:
         raise ValueError("the candidates must lie on the first place")
-    blocks = si.split_range(pg.numel(), len(replicas))
+    across = mesh is not None and mesh.spans_ranks
+    own = mesh.own if across else range(len(replicas))
+    if len(own) != len(replicas):
+        raise ValueError(f"{len(replicas)} replicas for {len(own)} places")
+    blocks = si.split_range(pg.numel(), mesh.size if across else len(own))
     outs = []
-    for (mega, codes), c0, c1 in zip(replicas, blocks, blocks[1:]):
+    for (mega, codes), d in zip(replicas, own):
+        c0, c1 = blocks[d], blocks[d + 1]
         place = mega.device
         block = tuple(t[c0:c1].to(place) for t in cand)
         _check_spans_args(mega, codes, block, K)
@@ -397,7 +412,17 @@ def verify_spans_sharded(replicas, pg, start, poff0, ov, thres, n_seq, *, K,
             if c1 > c0:
                 verify_spans_sharded.launches += 1
         outs.append(out)
-    return si.join_on(lead, outs)
+    out = si.join_on(lead, outs)
+    if not across:
+        return out
+    from catch_tpu_torch.parallel import distributed
+
+    rows = torch.stack(out, 1)
+    ranks = distributed.process_count()
+    counts = distributed.all_gather_rows(
+        torch.tensor([rows.shape[0]], dtype=torch.int64), [1] * ranks)
+    rows = distributed.all_gather_rows(rows, counts.tolist())
+    return tuple(rows[:, k].contiguous() for k in range(3))
 
 
 verify_spans_sharded.launches = 0
@@ -669,14 +694,15 @@ def scan_spans(searcher, sequences, device):
     if cand[0].numel() == 0:
         return empty
 
+    mesh = getattr(searcher, "mesh", None)
     places = si.scan_places(searcher, device)
     with profiling.maybe_trace("cover_scan_verify", device):
-        if len(places) > 1:
+        if mesh is not None and mesh.size > 1:
             # each place verifies a block of the candidates against its
             # own replica of the corpus and the probe rows
             sp_p, sp_s, sp_e = verify_spans_sharded(
                 [(_put(mega, p), probe_rows(searcher, p)) for p in places],
-                *cand, **vargs)
+                *cand, mesh=mesh, **vargs)
         else:
             sp_p, sp_s, sp_e = verify_spans(
                 _put(mega, device), probe_rows(searcher, device), *cand,

@@ -1460,7 +1460,13 @@ def _solve_device_steps(inst, device):
     """Device solve of a host instance as a host loop of K13 dispatches,
     each reading back only its step vectors and the stop flag.  Where
     K13's index would not fit int32 (_k13_fits), the host lazy solver
-    runs instead, with a warning; the picks are the same.
+    runs instead, with a warning.  The picks are the same on an
+    instance in the order that every constructor gives (build_instance,
+    build_instance_from_cover_arrays, scan_instance.instance_to_host):
+    pairs in set-major order, one pair for each (set, universe), the
+    intervals grouped by pair, and the intervals of a pair disjoint
+    (tests/test_torch_instance_order.py).  On an instance out of that
+    order the lazy solver's order can differ.
 
     Replaces catch_tpu/ops/set_cover.py _solve_device_steps (:712-748).
     """
@@ -1479,7 +1485,8 @@ def _solve_device(inst, device):
     until the stop flag, with the pick order kept on the device; only
     the stop flag comes back between dispatches, and the order at the
     end.  Where K13's index would not fit int32, the host lazy solver
-    runs instead, as in _solve_device_steps.
+    runs instead, as in _solve_device_steps, with the same picks on an
+    instance in the constructors' order.
 
     Replaces catch_tpu/ops/set_cover.py _solve_device (:948-961) and its
     while loop _solve_jit_padded (:917-945).

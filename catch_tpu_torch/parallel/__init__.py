@@ -13,11 +13,16 @@ jax.sharding.Mesh runs here over a Mesh of places (parallel/mesh.py):
   (parallel/set_cover.py).
 
 Clustering and the near-duplicate filter are not spread, as in
-catch_tpu.  A mesh across processes (catch_tpu/parallel/distributed.py)
-is not ported (ROADMAP queue 1, item 10b).
+catch_tpu.  A mesh across processes (parallel/distributed.py, the port
+of catch_tpu/parallel/distributed.py) spans every rank's places: each
+rank scans the whole design on its own places, and the span scan's
+verification and the sharded solve exchange across ranks through
+host-staged gloo collectives.  NCCL and distinct cards are not run
+(ROADMAP queue 1, item 4).
 """
 
+from catch_tpu_torch.parallel.distributed import maybe_initialize
 from catch_tpu_torch.parallel.mesh import Mesh, make_mesh
 from catch_tpu_torch.parallel.set_cover import solve_instance_sharded
 
-__all__ = ["Mesh", "make_mesh", "solve_instance_sharded"]
+__all__ = ["Mesh", "make_mesh", "maybe_initialize", "solve_instance_sharded"]

@@ -23,7 +23,10 @@ synchronisation.  Places of one card share their candidate slots and
 update rows; between distinct cards the wrapper copies each place's slot
 and row to the other cards after the phase that writes them.  Those
 copies were run only with all places on one card (the card tests force
-them there).
+them there).  On a mesh across processes each rank places only its own
+shards, and the slots and rows are exchanged between the ranks instead,
+through parallel/distributed.py's host-staged collectives: two host
+synchronisations a step.
 
 Left out from catch_tpu: the power-of-two pads, the dummy pair, set and
 universe slots (a shard may hold no set at all; it then offers
@@ -44,6 +47,7 @@ import torch
 from catch_tpu_torch import _build
 from catch_tpu_torch.ops import scan_instance as si
 from catch_tpu_torch.ops import set_cover as sc
+from catch_tpu_torch.parallel import distributed
 from catch_tpu_torch.parallel.mesh import make_mesh
 
 __all__ = ["solve_instance_sharded", "partition_instance", "place_partition",
@@ -115,20 +119,23 @@ def partition_instance(inst, n_shards):
 
 def place_partition(part, can_uncover, mesh):
     """The partition on the mesh: shard d's arrays as tensors on place d,
-    each with a replica of can_uncover (int32[nU]).  Returns a copy of
-    `part` whose `shards` hold tensors."""
+    each with a replica of can_uncover (int32[nU]), for this process's
+    places only (all of them without a process group).  Returns a copy
+    of `part` whose `shards` hold the placed shards, in mesh order, and
+    whose `mesh` is `mesh`."""
     if len(part["shards"]) != mesh.size:
         raise ValueError(f"{len(part['shards'])} shards for a mesh of "
                          f"{mesh.size} places")
     cu = np.ascontiguousarray(can_uncover, dtype=np.int32)
     shards = []
-    for shard, place in zip(part["shards"], mesh.places):
+    for d in mesh.own:
+        shard, place = part["shards"][d], mesh.places[d]
         placed = {k: torch.from_numpy(shard[k]).to(place)
                   for k in _SHARD_ARRAYS}
         placed["can_uncover"] = torch.from_numpy(cu).to(place, copy=True)
         placed["base"] = int(shard["base"])
         shards.append(placed)
-    return dict(part, shards=shards)
+    return dict(part, shards=shards, mesh=mesh)
 
 
 def initial_states(covered, u_size, part):
@@ -268,16 +275,41 @@ def _cards(places):
     return [seen.setdefault(p, len(seen)) for p in places]
 
 
+def _pack(t, names, d):
+    """Slot or row d of a card's buffers `t` (the fields `names`), as one
+    int32 row."""
+    return torch.cat([t[k][d].reshape(-1).view(torch.int32) for k in names])
+
+
+def _unpack(t, names, rows):
+    """Write every slot or row of `rows` (int32[n, width], _pack's rows of
+    all places) into a card's buffers `t`."""
+    o = 0
+    for k in names:
+        width = t[k][0].numel()
+        t[k].copy_(rows[:, o:o + width].contiguous().view(t[k].dtype)
+                   .reshape(t[k].shape))
+        o += width
+
+
 def greedy_steps_sharded(states, part, n_steps):
     """Run n_steps sharded greedy steps.
 
-    states: one dict per place (see initial_states), updated in place;
-    every tensor of place d lies on that place.  part: the placed
-    partition (place_partition).  Returns states.  Steps after the stop
-    run in full and change nothing but cur_rank.  No step waits for the
-    host.  On the card, the first call also keeps each shard regrouped
-    in the shard (shard_index); past set_cover._K12_PIECE_LIMIT pieces
-    that raises ValueError before any launch.
+    states: one dict per place of this process (see initial_states),
+    updated in place; every tensor of place d lies on that place.  part:
+    the placed partition (place_partition).  Returns states.  Steps
+    after the stop run in full and change nothing but cur_rank.  On the
+    card, the first call also keeps each shard regrouped in the shard
+    (shard_index); past set_cover._K12_PIECE_LIMIT pieces that raises
+    ValueError before any launch.
+
+    On one process no step waits for the host.  Where part's mesh spans
+    ranks, each step makes two exchanges between the ranks, each a host
+    synchronisation (parallel/distributed.py): after the offer phase the
+    ranks all-gather their places' candidate slots, and after the pick
+    the update rows, so every rank holds the chosen set's owner row; the
+    card's path makes one more a call, which agrees on the rows' sizes.
+    They are counted in `exchanges`; a process without ranks makes none.
 
     Replaces catch_tpu/parallel/set_cover.py greedy_step_sharded
     (:114-181) and the loop of _solve_sharded_jit (:184-236); the kernel
@@ -292,17 +324,27 @@ def greedy_steps_sharded(states, part, n_steps):
         return _greedy_steps_sharded_plain(states, part, n_steps)
     if any(p.type != "cuda" for p in places):
         raise ValueError(f"unsupported places {places}")
-    n = len(places)
+    mesh = _ranks_mesh(part)
+    n_loc = len(places)
+    # every place's global index: its candidate slot and update row
+    slots = list(mesh.own) if mesh else list(range(n_loc))
+    n = mesh.size if mesh else n_loc
     U = part["u_len"]
     shards = part["shards"]
     idxs = [shard_index(shard, U) for shard in shards]
     caps = [max([1] + [i[k] for i in idxs if i is not None])
             for k in ("max_groups", "max_pieces", "max_pairs")]
+    if mesh:
+        # the rows are exchanged whole, so every rank sizes them alike
+        caps = distributed.all_reduce_max(
+            torch.tensor(caps, dtype=torch.int64)).tolist()
+        greedy_steps_sharded.exchanges += 1
     lib = _build.library()
     # One GsCard per card.  Place d writes slot d and row d of its card's;
     # between the phases they are copied to the other cards' (torch's
-    # copies order the two cards' streams).  Places of one card need no
-    # copy: their stream orders the writes before the reads.
+    # copies order the two cards' streams), or exchanged between the
+    # ranks.  Places of one card need no copy: their stream orders the
+    # writes before the reads.
     card_of = _cards(places)
     n_cards = max(card_of) + 1
     bufs = [_card_buffers(n, caps, places[card_of.index(c)])
@@ -312,14 +354,14 @@ def greedy_steps_sharded(states, part, n_steps):
     calls, alive = [], []
     for c in range(n_cards):
         dev = places[card_of.index(c)]
-        mine = [d for d in range(n) if card_of[d] == c]
+        mine = [i for i in range(n_loc) if card_of[i] == c]
         records, max_nb, max_P = [], 0, 0
-        for d in mine:
-            shard, idx = shards[d], idxs[d]
+        for i in mine:
+            shard, idx = shards[i], idxs[i]
             S, P = shard["cost"].numel(), shard["set_of_pair"].numel()
             w = sc._step_scratch(dev, U, P, S,
                                  idx["max_pairs"] if idx else 0, 1)
-            records.append(_place_record(states[d], shard, idx, w, d))
+            records.append(_place_record(states[i], shard, idx, w, slots[i]))
             max_nb, max_P = max(max_nb, w["nb"]), max(max_P, P)
             alive.append(w)
         with torch.cuda.device(dev):
@@ -335,11 +377,19 @@ def greedy_steps_sharded(states, part, n_steps):
                             _build.ptr(tiles)), _build.stream_of(tiles)))
 
     def share(names):
-        for d in range(n):
+        for i, d in enumerate(slots):
             for c, (_, t) in enumerate(bufs):
-                if c != card_of[d]:
+                if c != card_of[i]:
                     for k in names:
-                        t[k][d].copy_(bufs[card_of[d]][1][k][d])
+                        t[k][d].copy_(bufs[card_of[i]][1][k][d])
+
+    def exchange(names):
+        own = torch.stack([_pack(bufs[card_of[i]][1], names, d).to(places[0])
+                           for i, d in enumerate(slots)])
+        rows = distributed.all_gather_rows(own, mesh.counts())
+        for _, t in bufs:
+            _unpack(t, names, rows)
+        greedy_steps_sharded.exchanges += 1
 
     def run(stages):
         for dev, args, stream in calls:
@@ -349,27 +399,41 @@ def greedy_steps_sharded(states, part, n_steps):
 
     st = sc._STAGES
     run(st["recompute"])
-    # with one card there is nothing to copy between the phases
+    # with one card and one rank there is nothing to copy between the
+    # phases
     phases = ([(st["score"] | st["decide"] | st["update"], ())]
-              if n_cards == 1 else
+              if n_cards == 1 and not mesh else
               [(st["score"], _SLOT), (st["decide"], _ROW),
                (st["update"], ())])
+    move = exchange if mesh else share
     for _ in range(n_steps):
         for stages, names in phases:
             run(stages)
-            share(names)
+            if names:
+                move(names)
     greedy_steps_sharded.launches += 1
     return states
 
 
 greedy_steps_sharded.launches = 0
+greedy_steps_sharded.exchanges = 0
+
+
+def _ranks_mesh(part):
+    """part's mesh where it spans ranks, else None."""
+    mesh = part.get("mesh")
+    return mesh if mesh is not None and mesh.spans_ranks else None
 
 
 def _greedy_steps_sharded_plain(states, part, n_steps):
     """Plain-PyTorch twin of greedy_steps_sharded: catch_tpu's
     greedy_step_sharded shard by shard, its pmin and psum as reductions
-    over the stacked per-shard results (gathered on the first place)."""
+    over the stacked per-shard results (gathered on the first place).
+    Across ranks the offers are all-gathered and the coverage delta and
+    per-universe decrement summed over the ranks, two exchanges a step
+    (catch_tpu's pmin and psum between processes)."""
     shards = part["shards"]
+    mesh = _ranks_mesh(part)
     lead = states[0]["covered"].device
     U, nU = part["u_len"], part["n_universes"]
     n_rank_vals = int(part["n_rank_vals"])
@@ -402,6 +466,13 @@ def _greedy_steps_sharded_plain(states, part, n_steps):
             pair_news.append(pair_new)
         loc_min = torch.stack([r for r, _ in offers])
         ids = torch.stack([i for _, i in offers])
+        if mesh:
+            rows = distributed.all_gather_rows(torch.stack(
+                [loc_min.view(torch.int32).long(), ids.long()], 1),
+                mesh.counts())
+            loc_min = rows[:, 0].int().view(torch.float32)
+            ids = rows[:, 1]
+            greedy_steps_sharded.exchanges += 1
         gmin = loc_min.min()
         chosen = torch.where(loc_min == gmin, ids,
                              torch.full_like(ids, _INT32_MAX)).min()
@@ -424,6 +495,10 @@ def _greedy_steps_sharded_plain(states, part, n_steps):
                 sop == ch, pair_new, 0).to(torch.int32))
             delta += part_delta.to(lead)
             dec += part_dec.to(lead)
+        if mesh:
+            both = distributed.all_reduce_sum(torch.cat([delta, dec]))
+            delta, dec = both[:U + 1], both[U + 1:]
+            greedy_steps_sharded.exchanges += 1
         newly = torch.cumsum(delta[:U], 0) > 0
 
         for state, c in zip(states, shards):
@@ -489,11 +564,24 @@ def solve_instance_sharded(inst, mesh=None, n_devices=None, device=None):
     time of the partition and its placement, and of the steps, as the
     phases solve_sharded:partition and solve_sharded:steps.
 
+    On a mesh across processes every rank calls it alike: each
+    partitions the whole instance, places only its own shards, runs K11
+    on its own lead, and reads the stop flag and the order from its own
+    replica (the replicas are equal); the steps exchange across ranks
+    (greedy_steps_sharded).  Every route below is decided from the
+    whole instance, so the same on every rank.
+
     Where any shard's regrouping would hold set_cover._K12_PIECE_LIMIT
     pieces or more (_k18_fits, counted on the host on any device), the
     host lazy solver runs instead, with a warning and before any launch:
     catch_tpu's sharded solver builds no index and solves such an
-    instance; the picks are the same.
+    instance.  The picks are the same on an instance in the order that
+    every constructor gives (set_cover.build_instance,
+    build_instance_from_cover_arrays, scan_instance.instance_to_host):
+    pairs in set-major order, one pair for each (set, universe), the
+    intervals grouped by pair, and the intervals of a pair disjoint
+    (tests/test_torch_instance_order.py).  On an instance out of that
+    order the lazy solver's order can differ.
 
     Replaces catch_tpu/parallel/set_cover.py solve_instance_sharded
     (:239-270).
@@ -517,7 +605,7 @@ def solve_instance_sharded(inst, mesh=None, n_devices=None, device=None):
     covered = sc.init_covered(put(inst.ivl_start), put(inst.ivl_end),
                               int(inst.u_len))
     states = initial_states(covered, put(inst.u_size), part)
-    t0 = si._mark_places(mesh.places, "solve_sharded:partition", t0)
+    t0 = si._mark_places(mesh.local_places, "solve_sharded:partition", t0)
     for _ in range(sc._dispatch_bound(inst.n_sets, inst.n_rank_vals)):
         greedy_steps_sharded(states, part, sc._STEPS_PER_DISPATCH)
         if bool(states[0]["stop"]):
@@ -526,5 +614,5 @@ def solve_instance_sharded(inst, mesh=None, n_devices=None, device=None):
         raise RuntimeError("the sharded solver reached its dispatch bound "
                            "without reaching its stop")
     order = states[0]["order"][:int(states[0]["n_chosen"])].cpu().numpy()
-    si._mark_places(mesh.places, "solve_sharded:steps", t0)
+    si._mark_places(mesh.local_places, "solve_sharded:steps", t0)
     return order

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of catch_tpu_torch's design, span, design_large, solver, mesh,
-trace and pool paths on one NVIDIA GPU.
+trace, pool and process-group paths on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -195,6 +195,22 @@ Phases (any failure exits non-zero and prints no result line):
      TSVs must equal the goldens that
      tests/data/golden/make_pool_goldens.py made with catch_tpu; the
      numpy and scipy versions and each run's wall seconds.
+ 26. two ranks on the one card (catch_tpu_torch/parallel/distributed.py:
+     a gloo group on 127.0.0.1, CATCH_TPU_VIRTUAL_DEVICES=2 in each, a
+     mesh of 4 places across the processes; the card's compute mode is
+     printed first, and an exclusive one fails): ebola175 m2 as in phase
+     5, then phase 7's identify and avoid goldens, through
+     catch_tpu_torch.cli.design with --num-devices 4 in both ranks, each
+     rank writing its own output: every output must equal its golden
+     (ebola175's byte for byte), verify_spans_sharded and the place
+     kernels must have launched in each rank; then
+     solve_instance_sharded across the ranks on ebola175's instance
+     (phase 17's): the pick order must equal the host lazy solver's
+     (phase 19's), with init_covered and greedy_sharded launched; and
+     one 64-step greedy_sharded dispatch across the ranks from the
+     start, against the twin across the ranks, every state exactly
+     equal; its host-clock median, min and max of 5 beside phase 20's
+     one-process time, and the exchanges between the ranks a step.
 
 Each phase prints its wall seconds as it ends.  The line before the
 last is the card's name and power limit; the one before it a JSON
@@ -2742,6 +2758,233 @@ def pool_runs():
                 p.wait()
 
 
+# Phase 26: one rank of two on the card.  argv: the work directory, the
+# ebola175 FASTA.  Writes <work>/ranks/rank<r>.json.
+RANK_SCRIPT = r"""
+import json, os, pickle, runpy, statistics, sys, time
+import numpy as np
+import torch
+from catch_tpu_torch.parallel import distributed
+work, in175 = sys.argv[1], sys.argv[2]
+golden = os.path.join("tests", "data", "golden")
+if not distributed.maybe_initialize():
+    sys.exit("no process group was initialized")
+rank = distributed.process_index()
+from catch_tpu_torch.ops import scan_instance as si
+from catch_tpu_torch.ops import scan_sparse
+from catch_tpu_torch.ops import set_cover as sct
+from catch_tpu_torch.parallel import distributed as dd
+from catch_tpu_torch.parallel import make_mesh
+from catch_tpu_torch.parallel import set_cover as psc
+from catch_tpu_torch.utils import profiling
+
+
+def cli(argv):
+    sys.argv = ["design"] + argv + ["--device", "cuda", "--num-devices", "4"]
+    runpy.run_module("catch_tpu_torch.cli.design", run_name="__main__")
+
+
+res = dict(rank=rank, wall={}, span_verify={})
+gathers = []
+gather = dd.all_gather_rows
+dd.all_gather_rows = lambda *a: (gathers.append(1), gather(*a))[1]
+si.reset_launches()
+t0 = time.time()
+cli([in175, "-o", os.path.join(work, f"ebola175_m2_rank{rank}.fasta"),
+     "-pl", "100", "-m", "2", "-l", "60", "-e", "50"])
+torch.cuda.synchronize()
+res["wall"]["ebola175 m2"] = time.time() - t0
+for name, argv in (
+        ("identify", ["identify_a.fasta", "identify_b.fasta", "-i", "-c",
+                      "0.5"]),
+        ("avoid", ["avoid_target.fasta", "--avoid-genomes",
+                   "avoid_bg.fasta"])):
+    profiling.reset_phases()
+    t0 = time.time()
+    cli([os.path.join(golden, a) if a.endswith(".fasta") else a
+         for a in argv] + ["-o", os.path.join(work, f"{name}_m0_rank{rank}"
+                           ".fasta"), "-pl", "60", "-ps", "30", "-m", "0",
+                           "-e", "0"])
+    torch.cuda.synchronize()
+    res["wall"][name] = time.time() - t0
+    res["span_verify"][name] = profiling.phase_seconds.get("span:verify", 0)
+res["design_launches"] = {n: f.launches for n, f in si.KERNELS.items()}
+res["span_exchanges"] = len(gathers)
+
+with open(os.path.join(work, "ebola175_instance.pkl"), "rb") as f:
+    inst, want = pickle.load(f)
+mesh = make_mesh(4, "cuda")
+si.reset_launches()
+e0 = psc.greedy_steps_sharded.exchanges
+torch.cuda.synchronize()
+t0 = time.time()
+order = psc.solve_instance_sharded(inst, mesh=mesh)
+torch.cuda.synchronize()
+res["wall"]["solve_instance_sharded"] = time.time() - t0
+res["solve_equal"] = bool(np.array_equal(order, want))
+res["solve_picks"] = len(order)
+res["solve_exchanges"] = psc.greedy_steps_sharded.exchanges - e0
+res["solve_launches"] = {n: f.launches for n, f in si.KERNELS.items()}
+
+# one 64-step dispatch from the start, against the twin across the ranks
+n = sct._STEPS_PER_DISPATCH
+part = psc.place_partition(psc.partition_instance(inst, 4),
+                           inst.can_uncover, mesh)
+consts, u_size = sct._instance_consts(inst, mesh.lead)
+states0 = psc.initial_states(sct.init_covered(
+    consts["ivl_start"], consts["ivl_end"], inst.u_len), u_size, part)
+
+
+def clone():
+    return [{k: v.clone() for k, v in s.items()} for s in states0]
+
+
+got = psc.greedy_steps_sharded(clone(), part, n)
+twin = psc._greedy_steps_sharded_plain(clone(), part, n)
+torch.cuda.synchronize()
+res["k18_equal"] = all(torch.equal(g[k], w[k])
+                       for g, w in zip(got, twin) for k in g)
+times = []
+for _ in range(5):
+    states = clone()
+    torch.cuda.synchronize()
+    e0 = psc.greedy_steps_sharded.exchanges
+    t0 = time.time()
+    psc.greedy_steps_sharded(states, part, n)
+    torch.cuda.synchronize()
+    times.append(1e3 * (time.time() - t0))
+    res["k18_exchanges"] = psc.greedy_steps_sharded.exchanges - e0
+res["k18_ms"] = [statistics.median(times), min(times), max(times)]
+res["k18_steps"] = n
+with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+    json.dump(res, f)
+"""
+RANK_PLACES = 2
+
+
+def run_two_ranks(script, args, timeout):
+    """`script` (Python source) in two processes on the card, each with
+    `args`, joined by a gloo group on 127.0.0.1 with RANK_PLACES virtual
+    places each; every rank is killed when one fails or the time runs
+    out, and the failure prints each rank's stderr tail (kept in
+    build/chip_smoke/ranks/)."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    logs = os.path.join(WORK, "ranks")
+    os.makedirs(logs, exist_ok=True)
+    procs = []
+    for rank in range(2):
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("CATCH_TPU_")}
+        env.update(CATCH_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   CATCH_TPU_NUM_PROCESSES="2", CATCH_TPU_PROCESS_ID=str(rank),
+                   CATCH_TPU_VIRTUAL_DEVICES=str(RANK_PLACES),
+                   OMP_NUM_THREADS="4", PYTHONPATH=ROOT)
+        with open(os.path.join(logs, f"rank{rank}.err"), "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", script] + args, cwd=ROOT,
+                env=env, stdout=subprocess.DEVNULL, stderr=err))
+    deadline = time.time() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(p.returncode for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for rank in range(2):
+            with open(os.path.join(logs, f"rank{rank}.err")) as f:
+                print(f"rank {rank} (exit {codes[rank]}) stderr tail:\n"
+                      f"{f.read()[-3000:]}", file=sys.stderr, flush=True)
+        fail(f"the two ranks exited with {codes} (timeout {timeout} s)")
+
+
+def two_ranks(card, inst175, want175, k18_row):
+    """Phase 26: two ranks on the one card, two virtual places each (a
+    mesh of 4 across processes): ebola175 m2, the identify and avoid
+    goldens through the CLI with --num-devices 4 in both ranks (each
+    rank writes its own output), then solve_instance_sharded on
+    ebola175's instance and one 64-step K18 dispatch across the ranks
+    against the twin across the ranks.  `k18_row`: phase 20's
+    greedy_sharded row (one process, 4 places, ebola175's instance)."""
+    import pickle
+
+    mode = run(["nvidia-smi", "--query-gpu=compute_mode",
+                "--format=csv,noheader"]).splitlines()[0].strip()
+    print(f"compute mode: {mode}", flush=True)
+    if "exclusive" in mode.lower():
+        fail(f"the card's compute mode is {mode}: two ranks cannot share it")
+    work = os.path.join(WORK, "ranks")
+    os.makedirs(work, exist_ok=True)
+    for name in os.listdir(work):
+        os.remove(os.path.join(work, name))
+    with open(os.path.join(work, "ebola175_instance.pkl"), "wb") as f:
+        pickle.dump((inst175, want175), f)
+    t0 = time.time()
+    run_two_ranks(RANK_SCRIPT, [work, write_subset(175)], timeout=300)
+    wall = time.time() - t0
+    results = []
+    for rank in range(2):
+        with open(os.path.join(work, f"rank{rank}.json")) as f:
+            results.append(json.load(f))
+        out = os.path.join(work, f"ebola175_m2_rank{rank}.fasta")
+        if not same_bytes(out, os.path.join(GOLDEN,
+                                            "torch_ebola175_m2.fasta")):
+            fail(f"ebola175 m2 in rank {rank} of 2 differs from "
+                 "torch_ebola175_m2.fasta")
+        for name in ("identify", "avoid"):
+            out = os.path.join(work, f"{name}_m0_rank{rank}.fasta")
+            if fasta_records(out) != fasta_records(
+                    os.path.join(GOLDEN, f"ref_{name}_m0.fasta")):
+                fail(f"{name} m0 in rank {rank} of 2 differs from its "
+                     "golden")
+    for r in results:
+        what = f"rank {r['rank']} of 2"
+        if not r["solve_equal"]:
+            fail(f"{what}: solve_instance_sharded's pick order differs from "
+                 "the host lazy solver's")
+        if not r["k18_equal"]:
+            fail(f"{what}: greedy_sharded across the ranks differs from its "
+                 "twin across the ranks")
+        require_launched(r["design_launches"], ["verify_spans_sharded"]
+                         + PLACE_KERNELS, f"the designs in {what}")
+        require_launched(r["solve_launches"], ["init_covered",
+                                               "greedy_sharded"],
+                         f"the sharded solve in {what}")
+        walls = "; ".join(f"{k} {v:.3f} s" for k, v in r["wall"].items())
+        print(f"{what} ({RANK_PLACES} places of 4): ebola175 m2, identify "
+              f"and avoid equal to their goldens; solve_instance_sharded "
+              f"{r['solve_picks']} picks, equal to the host's; wall: "
+              f"{walls}; {card}", flush=True)
+        ms, lo, hi = r["k18_ms"]
+        n = r["k18_steps"]
+        print(f"{what}: greedy_sharded across 2 ranks, one {n}-step "
+              f"dispatch of ebola175's instance at 4 places: {ms:.3f} ms "
+              f"[{lo:.3f}, {hi:.3f}] (host clock to a synchronised end), "
+              f"{ms / n:.4f} ms a step; one process at 4 places (phase 20, "
+              f"CUDA events): {k18_row['ms']:.3f} ms; exchanges in the "
+              f"dispatch: {r['k18_exchanges']} ({r['k18_exchanges'] / n:.4f} "
+              f"a step: 2 a step and 1 a call); in the solve: "
+              f"{r['solve_exchanges']}; {card}", flush=True)
+        sv = "; ".join(f"{k} {v:.4f} s" for k, v in r["span_verify"].items())
+        print(f"{what}: the span scans' verify (phase span:verify, the "
+              f"exchange included): {sv}; {r['span_exchanges']} exchanges "
+              f"in the designs (2 a span scan); {card}", flush=True)
+        print(f"launches in {what}: designs {r['design_launches']}; solve "
+              f"{r['solve_launches']}", flush=True)
+    print(f"two ranks: {wall:.1f} s from start to exit", flush=True)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "catch_tpu_torch")):
         fail("catch_tpu_torch/ is not beside chip_smoke.py; run it from the "
@@ -2973,6 +3216,11 @@ def main():
     traced_regions(torch, si, profiling, in175)
     pool_runs()
     clock.done(25)
+
+    # Phase 26: two ranks on the card.
+    two_ranks(card, inst175, want175,
+              next(r for r in rows if r["name"] == "greedy_sharded"))
+    clock.done(26)
 
     print(json.dumps({"kernels": rows}))
     print(card)

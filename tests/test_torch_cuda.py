@@ -24,7 +24,8 @@ mid-dispatch; for greedy_v1, the same shapes, pairs and intervals in
 random order, intervals that overlap within a pair and a set, and its
 regrouping rebuilt; for greedy_sharded, the same instances at 1 to 8
 places with empty shards, every place counted as a card of its own, its
-launches a step and its piece-limit route.  Every comparison is exact.
+launches a step, its piece-limit route, and two ranks on the one card
+exchanging through gloo.  Every comparison is exact.
 """
 
 import numpy as np
@@ -1907,6 +1908,93 @@ def test_verify_spans_sharded_equals_verify_spans(places8, n, keep):
     assert (want[0].numel() > 0) == (keep != 0)
     assert ss.verify_spans_sharded.launches == min(n, cand[0].numel())
     assert ss.verify_spans.launches == 0
+
+
+# K18 across two ranks on the one card: each rank runs this script with
+# argv[1] its output path (% rank) and argv[2:] the cases.
+_K18_RANKS = r"""
+import json, sys
+import torch
+sys.path.insert(0, "tests")
+from test_torch_cuda import _clone, _v1_instance
+from catch_tpu_torch.ops import set_cover as sct
+from catch_tpu_torch.parallel import distributed, make_mesh
+from catch_tpu_torch.parallel import set_cover as psc
+from catch_tpu_torch.parallel.mesh import Mesh
+
+assert distributed.maybe_initialize()
+mesh = make_mesh(device="cuda")
+assert mesh.size == 4 and mesh.spans_ranks and len(mesh.own) == 2
+out = {}
+for case in sys.argv[2:]:
+    inst = _v1_instance(case)
+    consts, u_size = sct._instance_consts(inst, mesh.lead)
+    covered = sct.init_covered(consts["ivl_start"], consts["ivl_end"],
+                               inst.u_len)
+    part = psc.place_partition(psc.partition_instance(inst, 4),
+                               inst.can_uncover, mesh)
+    states0 = psc.initial_states(covered, u_size, part)
+    # the twin of all four places in this process alone
+    local = Mesh([mesh.lead] * 4)
+    lpart = psc.place_partition(psc.partition_instance(inst, 4),
+                                inst.can_uncover, local)
+    lstates = psc.initial_states(covered, u_size, lpart)
+    got = [_clone(s) for s in states0]
+    twin = [_clone(s) for s in states0]
+    bad, exchanges = [], 0
+    for n_steps in (3, 64):
+        e0 = psc.greedy_steps_sharded.exchanges
+        psc.greedy_steps_sharded(got, part, n_steps)
+        torch.cuda.synchronize()
+        exchanges += psc.greedy_steps_sharded.exchanges - e0
+        psc._greedy_steps_sharded_plain(twin, part, n_steps)
+        psc._greedy_steps_sharded_plain(lstates, lpart, n_steps)
+        for i, d in enumerate(mesh.own):
+            for k in got[i]:
+                if not (torch.equal(got[i][k], twin[i][k])
+                        and torch.equal(got[i][k], lstates[d][k])):
+                    bad.append([n_steps, d, k])
+    out[case] = dict(bad=bad, exchanges=exchanges,
+                     n_chosen=int(got[0]["n_chosen"]),
+                     stop=bool(got[0]["stop"]))
+with open(sys.argv[1] % distributed.process_index(), "w") as f:
+    json.dump(out, f)
+"""
+K18_RANK_CASES = ["shuffled", "overlap1", "overlap2", "ties"]
+
+
+@pytest.fixture(scope="module")
+def k18_two_ranks(tmp_path_factory):
+    """Both ranks' results of _K18_RANKS: two ranks on the one card, two
+    virtual places each, a global mesh of 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+
+    from torch_ranks import python_script, rank_envs, run_ranks
+
+    out = str(tmp_path_factory.mktemp("k18_ranks") / "rank%d.json")
+    run_ranks([python_script(_K18_RANKS) + [out] + K18_RANK_CASES] * 2,
+              rank_envs(2, 2), timeout=600)
+    results = []
+    for rank in range(2):
+        with open(out % rank) as f:
+            results.append(json.load(f))
+    return results
+
+
+@pytest.mark.parametrize("case", K18_RANK_CASES)
+def test_greedy_sharded_across_two_ranks_equals_twin(k18_two_ranks, case):
+    """K18 across two ranks on the one card (the slot and the row
+    exchanged through gloo every step) for a 3-step dispatch, then a
+    64-step one from its state: each rank's two places equal the twin
+    across the ranks and the twin of all four places in one process,
+    state by state; two exchanges a step and one a call."""
+    for res in k18_two_ranks:
+        r = res[case]
+        assert r["bad"] == []
+        assert r["stop"] and r["n_chosen"] > 0
+        assert r["exchanges"] == 2 * (3 + 64) + 2
 
 
 @pytest.mark.parametrize("tile", [None, 64], ids=["tile_default",

@@ -127,25 +127,43 @@ print("MESH_OK")
 '''
 
 
-@pytest.mark.parametrize("block,mesh", [("", False), (_BLOCK_JAX, False),
-                                        (_BLOCK_JAX, True)],
-                         ids=["jax_installed", "jax_blocked",
-                              "jax_blocked_on_a_mesh"])
-def test_port_runs_without_jax(tmp_path, block, mesh):
+_DISTRIBUTED = r'''
+from catch_tpu_torch.parallel import distributed, maybe_initialize
+assert "catch_tpu_torch.parallel.distributed" in sys.modules
+assert maybe_initialize() is False and distributed.process_count() == 1
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "catch_tpu"))
+assert not bad, bad
+print("DISTRIBUTED_OK")
+'''
+
+
+@pytest.mark.parametrize("block,mesh,group", [
+    ("", False, False), (_BLOCK_JAX, False, False), (_BLOCK_JAX, True, False),
+    (_BLOCK_JAX, False, True)],
+    ids=["jax_installed",
+         "jax_blocked", "jax_blocked_on_a_mesh", "jax_blocked_distributed"])
+def test_port_runs_without_jax(tmp_path, block, mesh, group):
     """With `mesh`, the design runs with --num-devices 2 over two virtual
-    CPU places, so catch_tpu_torch/parallel/ is imported there too."""
+    CPU places, so catch_tpu_torch/parallel/ is imported there too; with
+    `group`, the process-group module is imported and asked to start
+    with no variable set."""
     code = _NO_JAX.format(block=block, fasta=_subset(tmp_path, 2),
                           out=str(tmp_path / "p.fasta"),
                           extra=["--num-devices", "2"] if mesh else [])
-    env = dict(os.environ)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CATCH_TPU_COORDINATOR", "CATCH_TPU_MULTIHOST")}
     if mesh:
         code += _ON_A_MESH
         env["CATCH_TPU_VIRTUAL_DEVICES"] = "2"
+    if group:
+        code += _DISTRIBUTED
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "NO_JAX_OK" in proc.stdout
     assert ("MESH_OK" in proc.stdout) == mesh
+    assert ("DISTRIBUTED_OK" in proc.stdout) == group
     assert _records(str(tmp_path / "p.fasta"))
 
 

@@ -676,12 +676,3 @@ def test_cli_mesh_size_follows_catch_tpu(tmp_path, monkeypatch, flags,
                "100", "-m", "0", "--device", "cpu"] + flags)
     mesh = pb.filters[-1].mesh
     assert (mesh.size if mesh is not None else None) == want
-
-
-@pytest.mark.parametrize("var", ["CATCH_TPU_COORDINATOR",
-                                 "CATCH_TPU_MULTIHOST"])
-def test_cli_refuses_a_mesh_across_processes(tmp_path, monkeypatch, var):
-    monkeypatch.setenv(var, "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        _cli([_subset(tmp_path, 1), "-o", str(tmp_path / "o.fasta"),
-              "--device", "cpu"])
