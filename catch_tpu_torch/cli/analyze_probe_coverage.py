@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-# Copied from catch_tpu/cli/analyze_probe_coverage.py (FASTA datasets only, plus --device).
+# Copied from catch_tpu/cli/analyze_probe_coverage.py (plus --device).
 """Run the coverage analysis on a provided list of probe sequences, on a
 GPU.
 
-Flag-compatible with catch_tpu's analyze_probe_coverage for FASTA
-datasets; `download:` datasets need the network and are refused.
-`--device` (default `cuda`) says where the scan runs; a missing CUDA
-device is an error, never a quiet switch to the CPU.
+Flag-compatible with catch_tpu's analyze_probe_coverage: a dataset is a
+FASTA file or `download:TAXID`, fetched from NCBI
+(utils/ncbi_neighbors.py, which needs the network).  `--device`
+(default `cuda`) says where the scan runs; a missing CUDA device is an
+error, never a quiet switch to the CPU.
 `--max-num-processes` is accepted and unused, as in catch_tpu.
 
 Run as ``python -m catch_tpu_torch.cli.analyze_probe_coverage``.
@@ -19,7 +20,7 @@ import os
 from catch_tpu_torch.analysis import coverage as coverage_analysis
 from catch_tpu_torch.device import resolve_device
 from catch_tpu_torch.probe import Probe
-from catch_tpu_torch.utils import log, seq_io, version
+from catch_tpu_torch.utils import log, ncbi_neighbors, seq_io, version
 
 
 def main(args):
@@ -29,17 +30,22 @@ def main(args):
     genomes_grouped_names = []
     for ds in args.dataset:
         if ds.startswith("download:"):
-            raise ValueError(
-                f"Cannot use dataset {ds!r}: 'download:' datasets need the "
-                "network and are not supported by catch_tpu_torch")
+            taxid = ds[len("download:"):]
+            ds_fasta_tf = ncbi_neighbors.construct_fasta_for_taxid(taxid)
+            genomes_grouped.append(
+                seq_io.read_genomes_from_fasta(ds_fasta_tf.name))
+            genomes_grouped_names.append("taxid:" + str(taxid))
+            ds_fasta_tf.close()
         elif os.path.isfile(ds):
             genomes_grouped.append(seq_io.read_genomes_from_fasta(ds))
             genomes_grouped_names.append(os.path.basename(ds))
         else:
             raise ValueError(
                 "Dataset labels are not allowed as input. Please specify "
-                "FASTA files. If you already specified a FASTA file, "
-                f"please check that the path to '{ds}' is valid.")
+                "only NCBI taxonomy IDs to download (via "
+                "'download:taxid') or FASTA files. If you already "
+                "specified a FASTA file, please check that the path to "
+                f"'{ds}' is valid.")
 
     if args.limit_target_genomes:
         genomes_grouped = [genomes[:args.limit_target_genomes]
@@ -70,7 +76,8 @@ def main(args):
 def init_and_parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-d", "--dataset", nargs="+", required=True,
-        help="One or more target datasets, each a path to a FASTA file")
+        help=("One or more target datasets ('download:TAXID' or a FASTA "
+              "path)"))
     parser.add_argument("-f", "--probes-fasta", required=True,
         help="Path to a FASTA file with the probe sequences to analyze")
     parser.add_argument("-m", "--mismatches", required=True, type=int,

@@ -8,21 +8,27 @@ a design per cluster, set cover under the mismatch/LCS model or a
 custom hybridization function, identification, avoided genomes, the
 tolerant model, adapters, N expansion, reverse complements, skipping
 the set cover and the coverage analysis, with the same flag names and
-the same 'basic' and 'large' defaults.  `--device` (default `cuda`)
+the same 'basic' and 'large' defaults.  A dataset is a FASTA file or
+`download:TAXID[-SEGMENT]`, fetched from NCBI (utils/ncbi_neighbors.py,
+which needs the network), with `--write-taxid-acc` and
+`--ncbi-api-key` as in catch_tpu.  `--device` (default `cuda`)
 says where the kernels run; a missing CUDA device is an error, never a
 quiet switch to the CPU.  `--num-devices` spreads the scans over a mesh
-of that many devices; a mesh that cannot be built is an error too.  The
-two NCBI flags are refused (they need the network).  With
-CATCH_TPU_COORDINATOR or CATCH_TPU_MULTIHOST in the environment the
+of that many devices; a mesh that cannot be built is an error too.
+With CATCH_TPU_COORDINATOR or CATCH_TPU_MULTIHOST in the environment the
 process joins a process group first (parallel/distributed.py), and the
 mesh spans every rank's devices, `--num-devices` counting them all;
-every rank writes its own output, as catch_tpu's does.
+every rank reads (or downloads) its own datasets and writes its own
+output, as catch_tpu's does.  The ranks must then hold the same groups
+in the same order: a download's order follows PYTHONHASHSEED, so ranks
+whose groups differ raise before any scan.
 
 Run as ``python -m catch_tpu_torch.cli.design``, or with the 'large'
 defaults as ``python -m catch_tpu_torch.cli.design_large``.
 """
 
 import argparse
+import hashlib
 import logging
 import os
 import random
@@ -40,23 +46,40 @@ from catch_tpu_torch.filters.near_duplicate import (
 from catch_tpu_torch.filters.polya import PolyAFilter
 from catch_tpu_torch.filters.reverse_complement import ReverseComplementFilter
 from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
+from catch_tpu_torch.genome import Genome
 from catch_tpu_torch.parallel import distributed
 from catch_tpu_torch.parallel import mesh as device_mesh
-from catch_tpu_torch.utils import log, seq_io, version
+from catch_tpu_torch.utils import log, ncbi_neighbors, seq_io, version
 
 _ARGS_TYPES = ("basic", "large")
 
-# Flags of catch_tpu/cli/design.py that the port refuses, and why.
-_REFUSED = {
-    ("--write-taxid-acc", "--ncbi-api-key"):
-        "NCBI downloads need the network",
-}
+
+def _read_dataset(path):
+    """One genome a record of the FASTA at `path`, and the records'
+    names."""
+    fasta = seq_io.read_fasta(path)
+    return [Genome.from_one_seq(seq) for seq in fasta.values()], list(fasta)
 
 
-class _Refuse(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not supported by catch_tpu_torch "
-                     f"yet ({self.help})")
+def _check_groups_agree(group_names, records_grouped):
+    """Raise on every rank of a process group unless all ranks read the
+    same records, in the same order, into every group.
+
+    Each rank reads its own datasets; a `download:` dataset comes in the
+    order of a set of accessions, which follows PYTHONHASHSEED.  Ranks
+    that design different instances would wait forever in a collective,
+    so this runs before any scan."""
+    digests = [hashlib.sha256("\n".join(records).encode()).hexdigest()
+               for records in records_grouped]
+    every = distributed.all_gather_object(digests)
+    differ = [name for i, name in enumerate(group_names)
+              if any(rank[i] != digests[i] for rank in every)]
+    if differ:
+        raise ValueError(
+            f"The ranks of the process group read the groups {differ} "
+            "with different records, or in a different order; a "
+            "'download:' dataset's order follows PYTHONHASHSEED, so give "
+            "every rank the same PYTHONHASHSEED")
 
 
 def main(args):
@@ -74,16 +97,44 @@ def main(args):
             "for the values, and pass any argument explicitly to "
             "override its relaxed default.")
 
+    if args.ncbi_api_key:
+        ncbi_neighbors.ncbi_api_key = args.ncbi_api_key
+
+    # Load one genome group per dataset argument: either a FASTA path
+    # or 'download:TAXID[-SEGMENT]' fetched from NCBI.
     genomes_grouped = []
     genomes_grouped_names = []
+    records_grouped = []
     for ds in args.dataset:
-        if not os.path.isfile(ds):
+        if ds.startswith("collection:"):
             raise ValueError(
-                f"Cannot interpret dataset {ds!r}: catch_tpu_torch reads "
-                "FASTA files only ('download:' and 'collection:' inputs "
-                "are not supported)")
-        genomes_grouped.append(seq_io.read_genomes_from_fasta(ds))
-        genomes_grouped_names.append(os.path.basename(ds))
+                "'collection:' inputs are not supported here; give each "
+                "dataset as a FASTA path or as 'download:taxid'.")
+        elif ds.startswith("download:"):
+            taxid = ds[len("download:"):]
+            taxid_fn = (os.path.join(args.write_taxid_acc,
+                                     str(taxid) + ".txt")
+                        if args.write_taxid_acc else None)
+            taxid, _, segment = taxid.partition("-")
+            ds_fasta_tf = ncbi_neighbors.construct_fasta_for_taxid(
+                taxid, segment=segment or None, write_to=taxid_fn)
+            genomes, records = _read_dataset(ds_fasta_tf.name)
+            genomes_grouped_names.append("taxid:" + str(taxid))
+            ds_fasta_tf.close()
+        elif os.path.isfile(ds):
+            genomes, records = _read_dataset(ds)
+            genomes_grouped_names.append(os.path.basename(ds))
+        else:
+            raise ValueError(
+                f"Cannot interpret dataset {ds!r}: it is neither an "
+                "existing FASTA file nor a 'download:taxid' spec "
+                "(named dataset labels are not supported). If it was "
+                "meant to be a FASTA path, check that the path exists.")
+        genomes_grouped.append(genomes)
+        records_grouped.append(records)
+    if distributed.is_initialized():
+        _check_groups_agree(genomes_grouped_names, records_grouped)
+
     if (args.limit_target_genomes and
             args.limit_target_genomes_randomly_with_replacement):
         raise Exception(
@@ -356,11 +407,16 @@ def init_and_parse_args(argv=None, args_type="basic"):
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
 
     parser.add_argument("dataset", nargs="+",
-        help="One or more target datasets (e.g., one per species), each "
-             "a path to a FASTA file")
+        help=("One or more target datasets (e.g., one per species), "
+              "each either 'download:TAXID' (NCBI download; "
+              "'download:TAXID-SEGMENT' for segmented viruses) or a "
+              "path to a FASTA file"))
     parser.add_argument("-o", "--output-probes", required=True,
         help=("The file to which all final probes should be written "
               "(FASTA format)"))
+    parser.add_argument("--write-taxid-acc",
+        help=("If 'download:' labels are used, write downloaded "
+              "accessions to WRITE_TAXID_ACC/TAXID.txt"))
     parser.add_argument("-pl", "--probe-length", type=int, default=100,
         help="Make probes be PROBE_LENGTH nt long")
     parser.add_argument("-ps", "--probe-stride", type=int, default=50,
@@ -531,6 +587,9 @@ def init_and_parse_args(argv=None, args_type="basic"):
         action="store_true",
         help=("Accepted for compatibility with the reference CLI; no "
               "shared-memory dict exists in this implementation"))
+    parser.add_argument("--ncbi-api-key",
+        help=("API key to use for NCBI e-utils (increases the limit on "
+              "requests/second)"))
     parser.add_argument("--device", default="cuda",
         help=("Device of the kernels (scans, clustering, MinHash "
               "signatures): 'cuda' (or 'cuda:N') or 'cpu'"))
@@ -542,9 +601,6 @@ def init_and_parse_args(argv=None, args_type="basic"):
     parser.add_argument("-V", "--version", action="version",
         version=version.get_version())
 
-    for flags, reason in _REFUSED.items():
-        parser.add_argument(*flags, nargs="*", action=_Refuse,
-                            help=f"not supported yet: {reason}")
     args = parser.parse_args(argv)
     args.args_type = args_type
     return args

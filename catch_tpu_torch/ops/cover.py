@@ -1,4 +1,4 @@
-# Copied from catch_tpu/ops/cover.py (CoverModel, choose_seed_length, the ProbeSearcher state, its seed join table, span API and the host scan of a custom cover function).
+# Copied from catch_tpu/ops/cover.py (CoverModel, choose_seed_length, probe_covers_sequence_by_longest_common_substring, the ProbeSearcher state, its seed join table, span API and the host scan of a custom cover function).
 """Probe cover model, the searcher state the device scans read, and the
 unmerged span API.
 
@@ -20,9 +20,10 @@ default model to its host scan, and its fallback, are not ported.
 import numpy as np
 
 from catch_tpu_torch.ops import encode
-from catch_tpu_torch.utils import intervals
+from catch_tpu_torch.utils import intervals, lcs
 
-__all__ = ["CoverModel", "ProbeSearcher", "choose_seed_length"]
+__all__ = ["CoverModel", "ProbeSearcher", "choose_seed_length",
+           "probe_covers_sequence_by_longest_common_substring"]
 
 # Rolling-hash multiplier for k-mer seed codes (odd 64-bit; golden
 # ratio).  Collisions only add verification work, never wrong output.
@@ -75,6 +76,35 @@ def choose_seed_length(probe_lens, mismatches, lcf_thres, min_k=20, k=20):
     if kp < min_k:
         return k, "random"
     return kp, "pigeonhole"
+
+
+def probe_covers_sequence_by_longest_common_substring(
+        mismatches, lcf_thres, island_of_exact_match=0):
+    """Host closure with the reference cover-model contract.
+
+    The 6-argument function of a custom hybridization model that gives
+    the default model's cover range around a seed anchor, from the
+    host oracle utils/lcs.py; the device scans encode the same model
+    directly.  Kept for API parity and for oracle tests.
+    """
+
+    def lcf(probe_seq, sequence, kmer_start, kmer_end,
+            full_probe_len, full_sequence_len):
+        l, start = lcs.k_lcf_around_anchor(
+            probe_seq, sequence, kmer_start, kmer_end, mismatches)
+        if l < min(lcf_thres, full_probe_len, full_sequence_len):
+            return None
+        if island_of_exact_match > 0:
+            if mismatches == 0:
+                exact_l = l
+            else:
+                exact_l, _ = lcs.k_lcf_around_anchor(
+                    probe_seq, sequence, kmer_start, kmer_end, 0)
+            if exact_l < island_of_exact_match:
+                return None
+        return (start, start + l)
+
+    return lcf
 
 
 class ProbeSearcher:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of catch_tpu_torch's design, span, design_large, solver, mesh,
-trace, pool and process-group paths on one NVIDIA GPU.
+trace, pool, process-group and NCBI download paths on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -210,7 +210,21 @@ Phases (any failure exits non-zero and prints no result line):
      one 64-step greedy_sharded dispatch across the ranks from the
      start, against the twin across the ranks, every state exactly
      equal; its host-clock median, min and max of 5 beside phase 20's
-     one-process time, and the exchanges between the ranks a step.
+     one-process time, and the exchanges between the ranks a step;
+ 27. ebola175 m2 named as download:186538, with the tests' fake NCBI
+     (tests/torch_fake_ncbi.py) in place of urllib.request.urlopen (the
+     first 175 fixture records as the taxid's neighbors table, efetch
+     batches in the order asked): (i)
+     catch_tpu_torch.cli.design with --write-taxid-acc and
+     --ncbi-api-key on cuda, with every launch count set to 0 just
+     before; its FASTA must equal the design of a FASTA of the records
+     in the order served (the order of a set of accessions, so of
+     PYTHONHASHSEED), the accession file the 175 accessions sorted, the
+     URLs one neighbors request and efetch batches of 100 and 75, each
+     with the key, and the six design kernels must have launched; (ii)
+     catch_tpu_torch.cli.analyze_probe_coverage on download:186538 with
+     torch_ebola175_m2.fasta's probes: its three TSVs must equal those
+     of the served order's FASTA, the group's name aside.
 
 Each phase prints its wall seconds as it ends.  The line before the
 last is the card's name and power limit; the one before it a JSON
@@ -232,6 +246,8 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.parse
+import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "zaire_ebolavirus.fasta.gz")
@@ -2984,6 +3000,109 @@ def two_ranks(card, inst175, want175, k18_row):
               f"{r['solve_launches']}", flush=True)
     print(f"two ranks: {wall:.1f} s from start to exit", flush=True)
 
+# Phase 27's taxid and API key.
+NCBI_TAXID = "186538"
+NCBI_KEY = "CHIPSMOKEKEY"
+
+
+def ncbi_download(torch, si, profiling):
+    """Phase 27: ebola175 m2 named as download:NCBI_TAXID, with the tests'
+    fake NCBI (tests/torch_fake_ncbi.py: the first 175 fixture records
+    as the taxid's neighbors table, efetch batches in the order asked,
+    any other URL an error) in place of urllib.request.urlopen: (i) the
+    design CLI with --write-taxid-acc and --ncbi-api-key, counting
+    launches; its FASTA must equal the design of the records in the
+    order served, the accession file must hold the 175 accessions
+    sorted, and the URLs must be one neighbors request and two efetch
+    batches (100 + 75), each with the key; (ii) the analysis CLI on
+    download:NCBI_TAXID with torch_ebola175_m2.fasta's probes: its three
+    outputs must equal those of the served order's FASTA, the group's
+    name aside."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fake_ncbi import NEIGHBORS, FakeNCBI, read_records, write_fasta
+    from catch_tpu_torch.cli import analyze_probe_coverage as analyze
+    from catch_tpu_torch.utils import ncbi_neighbors
+
+    records = read_records(FIXTURE, 175)
+    fake = FakeNCBI(records, taxid=NCBI_TAXID)
+    work = os.path.join(WORK, "ncbi")
+    os.makedirs(work, exist_ok=True)
+    for name in os.listdir(work):
+        os.remove(os.path.join(work, name))
+    flags = ["-pl", "100", "-m", "2", "-l", "60", "-e", "50", "--device",
+             "cuda"]
+    real_urlopen = urllib.request.urlopen
+    fake.install()
+    try:
+        out = os.path.join(work, "download.fasta")
+        pb, wall, launches, _ = counted(torch, si, profiling, lambda: design(
+            ["download:" + NCBI_TAXID, "-o", out, "--write-taxid-acc", work,
+             "--ncbi-api-key", NCBI_KEY] + flags))
+        require_launched(launches, DESIGN_KERNELS,
+                         "the design of download:" + NCBI_TAXID)
+        urls = list(fake.urls)
+        sizes = [len(urllib.parse.parse_qs(u.partition("?")[2])["id"][0]
+                     .split(",")) for u in urls[1:]]
+        if (len(urls) != 3 or not urls[0].startswith(NEIGHBORS)
+                or sizes != [100, 75]
+                or not all(f"api_key={NCBI_KEY}" in u for u in urls)):
+            fail(f"phase 27: the URLs asked for were {urls}")
+        with open(os.path.join(work, NCBI_TAXID + ".txt")) as f:
+            if f.read().split() != sorted(fake.order):
+                fail("phase 27: the accession file does not hold the 175 "
+                     "accessions, sorted")
+        served = write_fasta(os.path.join(work, "served.fasta"),
+                             fake.served_records())
+        same = os.path.join(work, "served_design.fasta")
+        design([served, "-o", same] + flags)
+        if not same_bytes(out, same):
+            fail("phase 27: the design of download:" + NCBI_TAXID
+                 + " differs from that of the served order's FASTA")
+        n_served = len(fake.served)
+        print(f"download:{NCBI_TAXID} m2: {len(pb.final_probes)} probes, "
+              f"equal to the design of the served order's FASTA "
+              f"({len(fasta_records(same))} probes); wall {wall:.3f} s; "
+              f"{len(urls)} URLs (efetch batches {sizes}, each with the "
+              f"key); served order starts {fake.served[:3]}", flush=True)
+        print(f"launches in the download design: {launches}", flush=True)
+
+        outputs = {}
+        for what, dataset in (("download", "download:" + NCBI_TAXID),
+                              ("fasta", None)):
+            if dataset is None:
+                dataset = write_fasta(
+                    os.path.join(work, "served_analysis.fasta"),
+                    fake.served_records()[n_served:])
+            files = [os.path.join(work, f"{what}_{k}.tsv")
+                     for k in ("analysis", "windows", "map_counts")]
+            analyze.main(analyze.init_and_parse_args([
+                "-d", dataset, "-f",
+                os.path.join(GOLDEN, "torch_ebola175_m2.fasta"),
+                "-m", "2", "-l", "60", "-e", "50",
+                "--write-analysis-to-tsv", files[0],
+                "--write-sliding-window-coverage", files[1],
+                "--write-probe-map-counts-to-tsv", files[2],
+                "--device", "cuda"]))
+            outputs[what] = []
+            for path in files:
+                with open(path) as f:
+                    outputs[what].append(f.read())
+        named = [t.replace(f"taxid:{NCBI_TAXID}, genome",
+                           "served_analysis.fasta, genome")
+                 for t in outputs["download"]]
+        if named != outputs["fasta"]:
+            fail("phase 27: the analysis of download:" + NCBI_TAXID
+                 + " differs from that of the served order's FASTA")
+        if f"taxid:{NCBI_TAXID}, genome 174" not in outputs["download"][0]:
+            fail("phase 27: the analysis does not name the group taxid:"
+                 + NCBI_TAXID)
+        print(f"download:{NCBI_TAXID} analysis: the three outputs equal "
+              "those of the served order's FASTA, the group's name aside; "
+              f"{len(fake.urls) - len(urls)} URLs", flush=True)
+    finally:
+        urllib.request.urlopen = real_urlopen
+        ncbi_neighbors.ncbi_api_key = None
+
 
 def main():
     if not os.path.isdir(os.path.join(ROOT, "catch_tpu_torch")):
@@ -3221,6 +3340,10 @@ def main():
     two_ranks(card, inst175, want175,
               next(r for r in rows if r["name"] == "greedy_sharded"))
     clock.done(26)
+
+    # Phase 27: ebola175 m2 from a download: dataset, with a fake NCBI.
+    ncbi_download(torch, si, profiling)
+    clock.done(27)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -23,6 +23,8 @@ from catch_tpu_torch.filters.set_cover_filter import SetCoverFilter
 from catch_tpu_torch.ops import scan_instance as si
 from catch_tpu_torch.ops.cover import CoverModel, ProbeSearcher
 from catch_tpu_torch.probe import Probe
+from catch_tpu_torch.utils import ncbi_neighbors as tnn
+from torch_fake_ncbi import FakeNCBI, read_records
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "tests", "data")
@@ -95,6 +97,7 @@ _NO_JAX = r'''
 import sys
 {block}
 from catch_tpu_torch.cli import analyze_probe_coverage, design
+from catch_tpu_torch.utils import ncbi_neighbors
 design.main(design.init_and_parse_args(
     [{fasta!r}, "-o", {out!r}, "-pl", "100", "-m", "2", "-l", "60",
      "-e", "50", "--device", "cpu"] + {extra!r}))
@@ -167,10 +170,12 @@ def test_port_runs_without_jax(tmp_path, block, mesh, group):
     assert _records(str(tmp_path / "p.fasta"))
 
 
-# The flags of catch_tpu's CLI that the port refuses, and for each flag
-# it serves, the filter (or the genome sampling) the flag must reach.
+# For each flag of catch_tpu's CLI, the filter (or the genome sampling,
+# or the NCBI client) the flag must reach.
 _NCBI = ("--write-taxid-acc", "--ncbi-api-key")
 _SERVED = {
+    "--write-taxid-acc": None,
+    "--ncbi-api-key": None,
     "--add-adapters": "AdapterFilter",
     "--filter-polya": "PolyAFilter",
     "--skip-set-cover": None,
@@ -184,7 +189,8 @@ _SERVED = {
 
 
 @pytest.mark.parametrize("argv", [
-    ["--write-taxid-acc", "d"], ["--ncbi-api-key", "k"], ["--add-adapters"],
+    ["--write-taxid-acc", "{tmp}"], ["--ncbi-api-key", "k"],
+    ["--add-adapters"],
     ["--filter-polya", "10", "2"],
     ["--skip-set-cover"],
     ["--add-reverse-complements"],
@@ -193,22 +199,21 @@ _SERVED = {
     ["--filter-from-fasta", "{fasta}"], ["--expand-n", "2"],
     ["--limit-target-genomes-randomly-with-replacement", "2"],
 ])
-def test_cli_refuses_unported_flags(argv, capsys, tmp_path, monkeypatch):
-    """The two NCBI flags are refused; every other flag of catch_tpu's CLI
-    parses and reaches its filter."""
-    if argv[0] in _NCBI:
-        with pytest.raises(SystemExit) as e:
-            tdesign.init_and_parse_args(["in.fasta", "-o", "out.fasta"]
-                                        + argv)
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert "not supported by catch_tpu_torch" in err
-        assert argv[0] in err
-        return
+def test_cli_flags_reach_ncbi_and_filters(argv, tmp_path, monkeypatch):
+    """Every flag of catch_tpu's CLI parses and reaches its filter; the
+    two NCBI flags reach utils/ncbi_neighbors.py, with a 'download:'
+    dataset read through a fake NCBI (tests/torch_fake_ncbi.py)."""
     fn = tmp_path / "fn.py"
     fn.write_text("def f(*args):\n    return None\n")
     fasta = _subset(tmp_path, 3)
-    argv = [a.format(fn=fn, fasta=fasta) for a in argv]
+    argv = [a.format(fn=fn, fasta=fasta, tmp=tmp_path) for a in argv]
+    dataset = fasta
+    if argv[0] in _NCBI:
+        fake = FakeNCBI(read_records(fasta), taxid=186538).install(
+            monkeypatch)
+        monkeypatch.setattr(tnn, "ncbi_api_key", None)
+        monkeypatch.setattr(tnn.time, "sleep", lambda s: None)
+        dataset = "download:186538"
     seen = {}
 
     class Designer:
@@ -220,7 +225,7 @@ def test_cli_refuses_unported_flags(argv, capsys, tmp_path, monkeypatch):
             pass
 
     monkeypatch.setattr(tdesign.probe_designer, "ProbeDesigner", Designer)
-    _port_design([fasta, "-o", str(tmp_path / "o.fasta"), "--device",
+    _port_design([dataset, "-o", str(tmp_path / "o.fasta"), "--device",
                   "cpu"] + argv)
     names = [type(f).__name__ for f in seen["filters"]]
     want = _SERVED[argv[0]]
@@ -236,6 +241,16 @@ def test_cli_refuses_unported_flags(argv, capsys, tmp_path, monkeypatch):
         assert scf[0].tolerant_model.custom_fn.__name__ == "f"
     elif argv[0] == "--limit-target-genomes-randomly-with-replacement":
         assert [len(g) for g in seen["genomes"]] == [2]
+    if argv[0] in _NCBI:
+        served = {seq for _, seq in fake.served_records()}
+        assert len(served) == 3 and len(fake.urls) == 2
+        assert [{g.seqs[0] for g in seen["genomes"][0]}] == [served]
+    if argv[0] == "--write-taxid-acc":
+        assert (tmp_path / "186538.txt").read_text().splitlines() == sorted(
+            fake.served)
+    elif argv[0] == "--ncbi-api-key":
+        assert tnn.ncbi_api_key == "k"
+        assert all("api_key=k" in u for u in fake.urls)
 
 
 def test_cuda_without_cuda_raises(monkeypatch, tmp_path):

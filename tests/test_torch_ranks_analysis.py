@@ -33,7 +33,9 @@ from catch_tpu_torch.filters.set_cover_filter import (
     SetCoverFilter as TFilter, _reverse_complement)
 from catch_tpu_torch.genome import Genome as TGenome
 from catch_tpu_torch.probe import Probe as TProbe
+from catch_tpu_torch.utils import ncbi_neighbors as tnn
 from catch_tpu_torch.utils import seq_io as tseq_io
+from torch_fake_ncbi import FakeNCBI, read_records
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "data", "golden")
@@ -319,9 +321,20 @@ def test_design_analysis_flags_equal_catch_tpu(tmp_path, capsys):
     assert "NUMBER OF PROBES" in outs["t"][0]
 
 
-def test_analyze_cli_refuses_downloads():
-    args = tanalyze.init_and_parse_args(
-        ["-d", "download:186538", "-f", "p.fasta", "-m", "0", "-l", "60",
-         "--device", "cpu"])
-    with pytest.raises(ValueError, match="network"):
-        tanalyze.main(args)
+def test_analyze_cli_reads_downloads(tmp_path, monkeypatch):
+    """A 'download:' dataset is read through utils/ncbi_neighbors.py, here
+    from a fake NCBI (tests/torch_fake_ncbi.py), and named by its
+    taxid."""
+    records = read_records(FIXTURE, 2)
+    fake = FakeNCBI(records, taxid=186538).install(monkeypatch)
+    monkeypatch.setattr(tnn.time, "sleep", lambda s: None)
+    probes = tmp_path / "p.fasta"
+    probes.write_text(">p\n%s\n" % records[0][1][:60])
+    analyzer = tanalyze.main(tanalyze.init_and_parse_args(
+        ["-d", "download:186538", "-f", str(probes), "-m", "0", "-l", "60",
+         "--device", "cpu"]))
+    assert analyzer.target_genomes_names == ["taxid:186538"]
+    assert len(fake.urls) == 2 and sorted(fake.served) == sorted(
+        h.split()[0] for h, _ in records)
+    assert {g.seqs[0] for g in analyzer.target_genomes[0]} == {
+        s for _, s in records}
